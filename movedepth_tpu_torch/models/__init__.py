@@ -1,0 +1,75 @@
+"""Model zoo and factory of the port (port of movedepth_tpu/models)."""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn as nn
+
+from movedepth_tpu.config import Config
+from movedepth_tpu_torch.models.depth_decoder import DepthDecoder, UncertNet
+from movedepth_tpu_torch.models.fpn import FPN4, ConvexUpsampleHead, Reg3D
+from movedepth_tpu_torch.models.pose_decoder import PoseDecoder
+from movedepth_tpu_torch.models.resnet import ResNetEncoder, encoder_channels
+
+__all__ = ["ResNetEncoder", "encoder_channels", "DepthDecoder", "UncertNet",
+           "PoseDecoder", "FPN4", "Reg3D", "ConvexUpsampleHead",
+           "build_models"]
+
+
+def _init_weights(module: nn.Module, generator: torch.Generator):
+    """Draw every conv weight and bias from ``generator`` with torch's
+    default initialization; BatchNorm starts as the identity."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                     generator=generator)
+            if m.bias is not None:
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.reset_parameters()
+
+
+def build_models(cfg: Config, device="cpu",
+                 generator: torch.Generator = None) -> Dict[str, nn.Module]:
+    """The shipped pipeline's models, in eval mode on ``device``.
+
+    Mono encoder/decoder, pose encoder/decoder (unless ``load_pose``), the
+    FPN matching encoder, the Reg3D regularizer, the uncertainty head and
+    (with ``convex_up``) the convex-upsampling head. Weights are drawn on
+    the CPU from ``generator`` (default: seeded with ``cfg.seed``), so a
+    seed gives the same weights on every device.
+    """
+    if cfg.num_depth_bins < 8:
+        raise NotImplementedError(
+            "Reg2D (num_depth_bins < 8) is not ported yet "
+            "(ROADMAP Queue 1 item 7c)")
+    if cfg.dcn:
+        raise NotImplementedError(
+            "the deformable FPN head (dcn=True) is not ported yet "
+            "(ROADMAP Queue 1 item 7e)")
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    ch_enc = encoder_channels(cfg.res_arch)
+    with torch.device("meta"):  # no allocation, no draw from the global RNG
+        models = {
+            "mono_encoder": ResNetEncoder(cfg.res_arch),
+            "mono_depth": DepthDecoder(ch_enc, scales=cfg.scales),
+            "mask_cnn": UncertNet(),
+            "mvs_encoder": FPN4(base_channels=8, scale=cfg.prior_scale),
+            "reg3d": Reg3D(base_channels=cfg.reg3d_c),
+        }
+        if not cfg.load_pose:
+            models["pose_encoder"] = ResNetEncoder(cfg.res_arch,
+                                                   num_input_images=2)
+            models["pose"] = PoseDecoder(ch_enc, num_frames_to_predict_for=2)
+        if cfg.convex_up:
+            models["up"] = ConvexUpsampleHead(
+                feature_dim=8 * 2 ** cfg.prior_scale, scale=cfg.prior_scale)
+    for m in models.values():
+        m.to_empty(device="cpu")
+        _init_weights(m, generator)
+    return {name: m.to(device).eval() for name, m in models.items()}

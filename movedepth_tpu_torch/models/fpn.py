@@ -1,0 +1,121 @@
+"""MVS matching encoder and cost-volume regularizer (port of
+movedepth_tpu/models/fpn.py), in the reference's module structure."""
+
+from __future__ import annotations
+
+import torch.nn as nn
+
+from movedepth_tpu_torch.models.layers import ConvBNReLU, ConvBnReLU3D
+from movedepth_tpu_torch.ops.sampling import resize_bilinear
+
+
+def _up2(x):
+    """F.interpolate(scale_factor=2, bilinear, align_corners=True)."""
+    return resize_bilinear(x, (x.shape[2] * 2, x.shape[3] * 2),
+                           align_corners=True)
+
+
+class FPN4(nn.Module):
+    """4-stage FPN over NCHW images -> (matching feature, context feature).
+
+    At ``scale`` s the matching feature has base*{3: 8, 2: 4, 1: 2, 0: 1}
+    channels at 1/2^s resolution and the context feature is the stride-2^s
+    trunk (conv2 at the shipped s=2).
+    """
+
+    def __init__(self, base_channels=8, scale=2):
+        super().__init__()
+        bc = base_channels
+        self.scale = scale
+        self.conv0 = nn.Sequential(ConvBNReLU(3, bc, 3), ConvBNReLU(bc, bc, 3))
+
+        def stage(cin, cout):
+            return nn.Sequential(ConvBNReLU(cin, cout, 5, 2),
+                                 ConvBNReLU(cout, cout, 3),
+                                 ConvBNReLU(cout, cout, 3))
+
+        self.conv1 = stage(bc, bc * 2)
+        self.conv2 = stage(bc * 2, bc * 4)
+        self.conv3 = stage(bc * 4, bc * 8)
+        final = bc * 8
+        if scale < 3:
+            self.inner1 = nn.Conv2d(bc * 4, final, 1, bias=True)
+        if scale < 2:
+            self.inner2 = nn.Conv2d(bc * 2, final, 1, bias=True)
+        if scale < 1:
+            self.inner3 = nn.Conv2d(bc, final, 1, bias=True)
+        if scale == 3:
+            self.out = nn.Conv2d(final, bc * 8, 1, bias=False)
+        else:
+            out_ch = {2: bc * 4, 1: bc * 2, 0: bc}[scale]
+            self.out = nn.Conv2d(final, out_ch, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        conv0 = self.conv0(x)
+        conv1 = self.conv1(conv0)
+        conv2 = self.conv2(conv1)
+        conv3 = self.conv3(conv2)
+        intra = conv3
+        if self.scale < 3:
+            intra = _up2(intra) + self.inner1(conv2)
+        if self.scale < 2:
+            intra = _up2(intra) + self.inner2(conv1)
+        if self.scale < 1:
+            intra = _up2(intra) + self.inner3(conv0)
+        ctx = {3: conv3, 2: conv2, 1: conv1, 0: conv0}[self.scale]
+        return self.out(intra), ctx
+
+
+class Reg3D(nn.Module):
+    """3-D U-Net cost regularizer: (B, G, D, H, W) -> (B, D, H, W) logits.
+
+    Three stride-2 ConvBnReLU3D stages, ConvTranspose3d decoders with
+    output_padding 1 and additive skips, a 1-channel prob head.
+    """
+
+    def __init__(self, base_channels=16):
+        super().__init__()
+        c = base_channels
+        self.conv0 = ConvBnReLU3D(c, c)
+        self.conv1 = ConvBnReLU3D(c, c * 2, stride=2)
+        self.conv2 = ConvBnReLU3D(c * 2, c * 2)
+        self.conv3 = ConvBnReLU3D(c * 2, c * 4, stride=2)
+        self.conv4 = ConvBnReLU3D(c * 4, c * 4)
+        self.conv5 = ConvBnReLU3D(c * 4, c * 8, stride=2)
+        self.conv6 = ConvBnReLU3D(c * 8, c * 8)
+
+        def up(cin, cout):
+            return nn.Sequential(
+                nn.ConvTranspose3d(cin, cout, 3, stride=2, padding=1,
+                                   output_padding=1, bias=False),
+                nn.BatchNorm3d(cout), nn.ReLU(inplace=True))
+
+        self.conv7 = up(c * 8, c * 4)
+        self.conv9 = up(c * 4, c * 2)
+        self.conv11 = up(c * 2, c)
+        self.prob = nn.Conv3d(c, 1, 3, stride=1, padding=1, bias=False)
+
+    def forward(self, x):
+        conv0 = self.conv0(x)
+        conv2 = self.conv2(self.conv1(conv0))
+        conv4 = self.conv4(self.conv3(conv2))
+        x = self.conv6(self.conv5(conv4))
+        x = conv4 + self.conv7(x)
+        x = conv2 + self.conv9(x)
+        x = conv0 + self.conv11(x)
+        return self.prob(x)[:, 0]
+
+
+class ConvexUpsampleHead(nn.Module):
+    """Mask head for convex upsampling: conv3x3 -> ReLU -> conv1x1 giving
+    9*(2^scale)^2 logits per pixel, both convs bias-free."""
+
+    def __init__(self, feature_dim=32, scale=2):
+        super().__init__()
+        self.upsample_mask = nn.Sequential(
+            nn.Conv2d(feature_dim, 64, 3, 1, 1, bias=False),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(64, (2 ** scale) ** 2 * 9, 1, bias=False))
+
+    def forward(self, feat):
+        return self.upsample_mask(feat)

@@ -1,0 +1,115 @@
+"""Weights into the port: from the JAX package's flax variables, and from
+reference per-model ``.pth`` folders.
+
+:func:`state_dict_from_jax` inverts movedepth_tpu/train/torch_import.py:
+flax kernels (kh, kw, I, O) / (kd, kh, kw, I, O) go back to torch's
+(O, I, ...) layout, the transposed 3-D convs of Reg3D are flipped back
+(the JAX package stores them spatially flipped, as input-dilated
+correlations), and BatchNorm scale/bias and mean/var become
+weight/bias and running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_FIXED_NAMES = {
+    "pose": {"squeeze": "net.0", "pose_0": "net.1", "pose_1": "net.2",
+             "pose_2": "net.3"},
+    "mask_cnn": {"conv1": "conv1.0", "bn1": "conv1.1", "conv2": "conv2.0",
+                 "bn2": "conv2.1", "head": "head_convs"},
+    "up": {"mask0": "upsample_mask.0", "mask1": "upsample_mask.2"},
+}
+_TRANSPOSED = ("conv7_0", "conv9_0", "conv11_0")  # Reg3D's ConvTranspose3d
+
+
+def _leaves(tree, path=()):
+    """(path, node) for every conv ('kernel') and BatchNorm ('scale')."""
+    if "kernel" in tree or "scale" in tree:
+        yield path, tree
+        return
+    for key, sub in tree.items():
+        yield from _leaves(sub, path + (key,))
+
+
+def _prefix(name, path, scales):
+    """Flax module path -> the reference's state_dict prefix."""
+    dotted = ".".join(p.replace("_", ".") for p in path)
+    if name in ("mono_encoder", "pose_encoder"):
+        return "encoder." + dotted  # layer1_0/downsample_0 -> layer1.0...
+    if name in ("mvs_encoder", "reg3d"):
+        return dotted  # conv0_1/bn -> conv0.1.bn, conv7_0 -> conv7.0
+    if name == "mono_depth":  # upconv_i_j at 2*(4-i)+j, then dispconv_s
+        kind, *idx = path[0].split("_")
+        if kind == "upconv":
+            return f"decoder.{2 * (4 - int(idx[0])) + int(idx[1])}.conv.conv"
+        return f"decoder.{10 + list(scales).index(int(idx[0]))}.conv"
+    return _FIXED_NAMES[name][path[0]]
+
+
+def _kernel_to_torch(kernel, transposed):
+    k = np.asarray(kernel)
+    if k.ndim == 4:
+        return k.transpose(3, 2, 0, 1)
+    if transposed:
+        return k.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1]
+    return k.transpose(4, 3, 0, 1, 2)
+
+
+def state_dict_from_jax(name: str, variables: Mapping,
+                        scales=(0, 1, 2, 3)) -> Dict[str, torch.Tensor]:
+    """One model's flax variables ({'params', 'batch_stats'}, numpy or
+    jax arrays) -> the port's state_dict for model ``name`` (one of
+    ``ALL_MODELS``)."""
+    stats = variables.get("batch_stats", {})
+    out = {}
+    for path, node in _leaves(variables["params"]):
+        prefix = _prefix(name, path, scales)
+        if "kernel" in node:
+            transposed = name == "reg3d" and path[0] in _TRANSPOSED
+            out[prefix + ".weight"] = _kernel_to_torch(node["kernel"],
+                                                       transposed)
+            if "bias" in node:
+                out[prefix + ".bias"] = node["bias"]
+        else:
+            st = stats
+            for p in path:
+                st = st[p]
+            out.update({prefix + ".weight": node["scale"],
+                        prefix + ".bias": node["bias"],
+                        prefix + ".running_mean": st["mean"],
+                        prefix + ".running_var": st["var"],
+                        prefix + ".num_batches_tracked": np.zeros((),
+                                                                  np.int64)})
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}
+
+
+def load_reference_folder(folder: str, models: Mapping) -> list:
+    """Load ``<folder>/<name>.pth`` into each of ``models`` in place.
+
+    The files are the reference's per-model state_dicts. Entries that are
+    not weights of the model (``encoder.fc.*``, the encoder's saved
+    ``height``/``width``) are dropped; a missing file is skipped, as in
+    the JAX package's loader. Returns the names that were loaded.
+    """
+    loaded = []
+    for name, model in models.items():
+        path = os.path.join(folder, f"{name}.pth")
+        if not os.path.isfile(path):
+            continue
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        own = model.state_dict()
+        state = {k: v for k, v in state.items() if k in own}
+        missing = [k for k in own if k not in state
+                   and not k.endswith("num_batches_tracked")]
+        if missing:
+            raise KeyError(f"{path} lacks {len(missing)} weights of "
+                           f"{name}, e.g. {missing[:3]}")
+        model.load_state_dict(state, strict=False)
+        loaded.append(name)
+    return loaded
