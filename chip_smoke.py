@@ -8,15 +8,26 @@ without printing the final ok line:
 
 1. device: a CUDA card must be present (the CPU is never used instead);
    prints its name and power limit from nvidia-smi.
-2. build: compiles csrc/sweep_warp_corr.cu with nvcc for sm_90a.
-3. kernel: the kernel against its plain PyTorch version on the card at the
-   shipped prior-scale shape, in float32 and bfloat16, plus an
+2. build: compiles every csrc/*.cu with nvcc for sm_90a, all at once.
+3. kernel: sweep_warp_corr against its plain PyTorch version on the card
+   at the shipped prior-scale shape, in float32 and bfloat16, plus an
    out-of-frame case; times both with CUDA events.
 4. main path: forward_infer_fused of the shipped Config() models at
    640x192, float32 on the card against the same port on the CPU, and the
    same forward in bfloat16 autocast.
 5. serve: the inference CLI on 4 synthetic frames and a .pth folder.
 6. throughput: forward_infer frames/s in bfloat16 at batch 128 and 1.
+7. train kernels: the sweep warp and the border image warp, forward and
+   backward, against their plain versions (and autograd) at the shipped
+   train shapes (batch 12), exact-bound and out-of-frame coordinates
+   included; times kernel and plain version, forward and backward.
+8. train path: one train_step of the shipped Config(compute_dtype=
+   "float32") models at 640x192, batch 2, on the card against the same step
+   on the CPU (every loss; every model's gradient, against the spread the
+   CPU shows between 1 thread and all of them), the kernel launches of that
+   step, then one step of the shipped bfloat16 config.
+9. train throughput: train_step in bfloat16 autocast at batch 12, with the
+   kernels and with this script swapping in the plain versions.
 
 The lines before the last carry the card's nvidia-smi name and power limit
 and a JSON summary of every kernel; the last line is the JSON ok record.
@@ -32,6 +43,10 @@ import tempfile
 import time
 
 KERNEL_SHAPE = dict(B=16, R=48, W=160, C=32, D=16, G=16)
+# the shipped train step's kernel shapes: batch 12, the prior-scale sweep
+# (16 bins, 32 FPN channels) and the full-resolution warps of K = 6 maps
+TRAIN_SHAPE = dict(B=12, R=48, W=160, C=32, D=16, H=192, X=640, K=6)
+KERNELS = ("sweep_warp_corr", "sweep_warp", "image_warp")
 
 
 def log(*a):
@@ -75,21 +90,28 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel source at once (one nvcc each), then the typed
+    libraries."""
     from movedepth_tpu_torch import native
-    from movedepth_tpu_torch.ops import sweep_warp
+    from movedepth_tpu_torch.ops import image_warp, sweep_warp
     t0 = time.perf_counter()
+    native.build_all(KERNELS)
     sweep_warp.kernel_library()
-    seconds = time.perf_counter() - t0
-    report = native.build_reports.get("sweep_warp_corr")
-    log(f"[build] sweep_warp_corr: nvcc {' '.join(native.NVCC_FLAGS)} -> "
-        f"{native.BUILD_DIR}, {seconds:.1f} s"
-        + ("" if report else " (already built)"))
-    if report:
+    sweep_warp.warp_library()
+    image_warp.kernel_library()
+    log(f"[build] {', '.join(KERNELS)}: nvcc {' '.join(native.NVCC_FLAGS)} "
+        f"-> {native.BUILD_DIR}, {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        report = native.build_reports.get(name)
+        if not report:
+            log(f"[build] {name}: already built")
+            continue
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", report[1])]
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
                                                 report[1]))
-        log(f"[build] ptxas: {len(regs)} kernel instantiations, "
-            f"{min(regs)}-{max(regs)} registers, {spills} bytes spilled")
+        log(f"[build] {name}: ready after {report[0]:.1f} s; ptxas: "
+            f"{len(regs)} kernel instantiations, {min(regs)}-{max(regs)} "
+            f"registers, {spills} bytes spilled")
 
 
 def _bf16_ulp(x):
@@ -138,6 +160,23 @@ def _check_kernel(src, ref, sx, sy, g):
     return err32
 
 
+def _kitti_pose(b, gen, scale=1.0):
+    """Small forward motions with a little rotation, as between KITTI
+    frames."""
+    import torch
+    from movedepth_tpu_torch.ops.geometry import transformation_from_parameters
+    aa = torch.randn(b, 3, generator=gen) * 5e-3 * scale
+    tr = torch.randn(b, 3, generator=gen) * 3e-2 * scale
+    tr[:, 2] -= 0.1 * scale
+    return transformation_from_parameters(aa, tr)
+
+
+def _kitti_K(b, h, w):
+    import torch
+    return torch.tensor([[0.58 * w, 0, 0.5 * w, 0], [0, 1.92 * h, 0.5 * h, 0],
+                         [0, 0, 1, 0], [0, 0, 0, 1]]).repeat(b, 1, 1)
+
+
 def phase_kernel():
     """Kernel vs plain version on the card at the shipped prior-scale shape
     (batch cut to 16) with coordinates from the sweep grid of small,
@@ -146,7 +185,6 @@ def phase_kernel():
     from movedepth_tpu_torch.ops import sweep_warp as SW
     from movedepth_tpu_torch.ops.costvolume import (schedule_depth_bins_z,
                                                     sweep_grid)
-    from movedepth_tpu_torch.ops.geometry import transformation_from_parameters
 
     s = KERNEL_SHAPE
     b, r, w, c, d, g = s["B"], s["R"], s["W"], s["C"], s["D"], s["G"]
@@ -154,15 +192,11 @@ def phase_kernel():
     dev = torch.device("cuda")
     src = torch.randn(b, r, w, c, generator=gen).to(dev)
     ref = torch.randn(b, r, w, c, generator=gen).to(dev)
-    K = torch.tensor([[0.58 * w, 0, 0.5 * w, 0], [0, 1.92 * r, 0.5 * r, 0],
-                      [0, 0, 1, 0], [0, 0, 0, 1]]).repeat(b, 1, 1)
-    aa = torch.randn(b, 3, generator=gen) * 5e-3
-    tr = torch.randn(b, 3, generator=gen) * 3e-2
-    tr[:, 2] -= 0.1
-    T = transformation_from_parameters(aa, tr)
+    K = _kitti_K(b, r, w)
+    T = _kitti_pose(b, gen)
     prior = torch.rand(b, r, w, generator=gen) * 55 + 5
-    bins = schedule_depth_bins_z(prior, d, 0.3, 30.0 * tr[:, 2].abs()[:, None,
-                                                                      None])
+    bins = schedule_depth_bins_z(prior, d, 0.3, 30.0 * T[:, 2, 3].abs()[:, None,
+                                                                        None])
     grid = sweep_grid(bins, K, torch.linalg.inv(K), T)
     sx, sy = (t.contiguous().to(dev) for t in SW.grid_to_pixel(grid, r, w))
 
@@ -345,6 +379,346 @@ def phase_throughput(cpu_models, card):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
 
 
+def _within(name, got, want, bf16=False):
+    """Raise unless |got - want| <= 1e-5 * max|want| (+ one bf16 ulp of
+    want with ``bf16``) everywhere; returns max |got - want|."""
+    import torch
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bound = 1e-5 * want.abs().max()
+    excess = err - bound
+    if bf16:
+        excess = excess - _bf16_ulp(want)
+    worst = excess.max().item()
+    log(f"[train-kernel] {name}: max|kernel-plain| {err.max().item():.3e}, "
+        f"1e-5*max|plain| {bound.item():.3e}"
+        + (" + one bf16 ulp" if bf16 else "")
+        + f"; excess {worst:.3e} (must be <= 0)")
+    if worst > 0 or not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: kernel disagrees with the plain version")
+    return err.max().item()
+
+
+def _edge_cases(sx, sy, w, h):
+    """Coordinates exactly on 0, W-1, R-1 and outside the frame in the
+    first row of every map, and one map shifted wholly out of frame."""
+    import torch
+    sx[:, :, 0, :8] = torch.tensor([0.0, w - 1.0, -0.5, w - 0.5, -3.0,
+                                    w + 4.0, 0.0, w - 1.0])
+    sy[:, :, 0, :8] = torch.tensor([0.0, h - 1.0, 3.0, 2.0, h - 0.5, -0.5,
+                                    h - 1.0, 0.0])
+    sx[:, 1] += 2.0 * w
+
+
+def _grad_ms(out, inputs, g):
+    """CUDA-event median of one backward through ``out``'s graph."""
+    import torch
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, g,
+                                               retain_graph=True))
+
+
+def phase_train_kernels():
+    """The train step's four kernels against their plain versions at the
+    shipped train shapes (batch 12): the sweep warp in float32 and bfloat16
+    and its source gradient (twice: atomics make it run-to-run variable),
+    the border image warp and its coordinate gradient. Returns the kernels'
+    summary records."""
+    import torch
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    from movedepth_tpu_torch.ops.costvolume import (schedule_depth_bins_z,
+                                                    sweep_grid)
+    from movedepth_tpu_torch.ops.geometry import backproject, project
+
+    s = TRAIN_SHAPE
+    b, r, w, c, d = s["B"], s["R"], s["W"], s["C"], s["D"]
+    gen = torch.Generator().manual_seed(1)
+    dev = torch.device("cuda")
+    K = _kitti_K(b, r, w)
+    T = _kitti_pose(b, gen)
+    prior = torch.rand(b, r, w, generator=gen) * 55 + 5
+    bins = schedule_depth_bins_z(prior, d, 0.3, 30.0 * T[:, 2, 3].abs()[:, None,
+                                                                        None])
+    sx, sy = SW.grid_to_pixel(sweep_grid(bins, K, torch.linalg.inv(K), T),
+                              r, w)
+    sx, sy = sx.contiguous(), sy.contiguous()
+    _edge_cases(sx, sy, w, r)
+    sx, sy = sx.to(dev), sy.to(dev)
+    src = torch.randn(b, r, w, c, generator=gen).to(dev)
+    g = torch.randn((b, d, r, w, c), generator=gen).to(dev)
+
+    err_fwd = _within("sweep_warp float32 forward", SW.sweep_warp(src, sx, sy),
+                      SW.sweep_warp_reference(src, sx, sy))
+    src16 = src.bfloat16()
+    _within("sweep_warp bfloat16 forward", SW.sweep_warp(src16, sx, sy),
+            SW.sweep_warp_reference(src16.float(), sx, sy), bf16=True)
+
+    leaf = src.clone().requires_grad_()
+    want = torch.autograd.grad(SW.sweep_warp_reference(leaf, sx, sy), leaf,
+                               g)[0]
+    runs = []
+    for _ in range(2):
+        leaf = src.clone().requires_grad_()
+        runs.append(torch.autograd.grad(SW.sweep_warp(leaf, sx, sy), leaf,
+                                        g)[0])
+    err_bwd = max(_within(f"sweep_warp float32 dsrc, run {i + 1}", run, want)
+                  for i, run in enumerate(runs))
+    log(f"[train-kernel] sweep_warp dsrc run-to-run max difference "
+        f"{(runs[0] - runs[1]).abs().max().item():.3e} (float32 atomics)")
+    g16 = g.bfloat16()
+    leaf16 = src16.clone().requires_grad_()
+    leaf32 = src16.float().requires_grad_()
+    _within("sweep_warp bfloat16 dsrc",
+            torch.autograd.grad(SW.sweep_warp(leaf16, sx, sy), leaf16, g16)[0],
+            torch.autograd.grad(SW.sweep_warp_reference(leaf32, sx, sy),
+                                leaf32, g16.float())[0], bf16=True)
+
+    # bfloat16, the train path's dtype, for the times
+    ms_fwd = cuda_ms(lambda: SW.sweep_warp(src16, sx, sy))
+    plain_fwd = cuda_ms(lambda: SW.sweep_warp_reference(src16, sx, sy))
+    leaf16 = src16.clone().requires_grad_()
+    ms_bwd = _grad_ms(SW.sweep_warp(leaf16, sx, sy), leaf16, g16)
+    plain_bwd = _grad_ms(SW.sweep_warp_reference(leaf16, sx, sy), leaf16, g16)
+    log(f"[train-kernel] sweep_warp bfloat16 at {s}: forward kernel "
+        f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms; backward kernel "
+        f"{ms_bwd:.4f} ms, plain {plain_bwd:.4f} ms")
+
+    # the full-resolution image warp: a depth map projected into the source
+    # frame by K = 6 poses near one KITTI-like motion
+    hh, xx, k = s["H"], s["X"], s["K"]
+    Kf = _kitti_K(b, hh, xx)
+    depth = torch.nn.functional.interpolate(
+        torch.rand(b, 1, hh // 16, xx // 16, generator=gen) * 45 + 5,
+        size=(hh, xx), mode="bilinear", align_corners=False)[:, 0]
+    T = _kitti_pose(b, gen, scale=3.0)
+    Tk = torch.stack([T @ _kitti_pose(b, gen, scale=0.1) for _ in range(k)],
+                     dim=1)
+    pts = backproject(depth[:, None].expand(b, k, hh, xx),
+                      torch.linalg.inv(Kf)[:, None])
+    gx, gy = SW.grid_to_pixel(project(pts, Kf[:, None], Tk, hh, xx), hh, xx)
+    gx, gy = gx.contiguous(), gy.contiguous()
+    _edge_cases(gx, gy, xx, hh)
+    gx, gy = gx.to(dev), gy.to(dev)
+    img = torch.rand(b, hh, xx, 3, generator=gen).to(dev)
+    gi = torch.randn((b, k, hh, xx, 3), generator=gen).to(dev)
+    err_img = _within("warp_images_border forward",
+                      IW.warp_images_border(img, gx, gy),
+                      IW.warp_images_border_reference(img, gx, gy))
+    x, y = gx.clone().requires_grad_(), gy.clone().requires_grad_()
+    got = torch.autograd.grad(IW.warp_images_border(img, x, y), (x, y), gi)
+    want = torch.autograd.grad(IW.warp_images_border_reference(img, x, y),
+                               (x, y), gi)
+    err_coord = max(_within("warp_images_border dsx", got[0], want[0]),
+                    _within("warp_images_border dsy", got[1], want[1]))
+    # the kernels alone take the coordinates clamped; the plain version
+    # clamps inside (the clamp's backward is in its time)
+    xc, yc = (t.detach().requires_grad_()
+              for t in IW.clamp_coords(gx, gy, hh, xx))
+    ms_img = cuda_ms(lambda: IW.WarpImagesBorder.apply(img, xc, yc))
+    plain_img = cuda_ms(lambda: IW.warp_images_border_reference(img, gx, gy))
+    ms_coord = _grad_ms(IW.WarpImagesBorder.apply(img, xc, yc), (xc, yc), gi)
+    plain_coord = _grad_ms(IW.warp_images_border_reference(img, x, y), (x, y),
+                           gi)
+    log(f"[train-kernel] warp_images_border float32 at B={b}, K={k}, "
+        f"{hh}x{xx}: forward kernel {ms_img:.4f} ms, plain {plain_img:.4f} "
+        f"ms; coordinate backward kernel {ms_coord:.4f} ms, plain "
+        f"{plain_coord:.4f} ms")
+
+    def record(name, source, replaces, err, ms, plain_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"movedepth_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": None, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms}
+
+    return [
+        record("sweep_warp", "sweep_warp.cu",
+               "movedepth_tpu/ops/pallas/sweep_warp.py:662", err_fwd, ms_fwd,
+               plain_fwd),
+        record("sweep_warp_bwd", "sweep_warp.cu",
+               "movedepth_tpu/ops/pallas/sweep_warp.py:618", err_bwd, ms_bwd,
+               plain_bwd),
+        record("warp_images_border", "image_warp.cu",
+               "movedepth_tpu/ops/pallas/image_warp.py:576", err_img, ms_img,
+               plain_img),
+        record("warp_images_border_coord_bwd", "image_warp.cu",
+               "movedepth_tpu/ops/pallas/image_warp.py:443", err_coord,
+               ms_coord, plain_coord),
+    ]
+
+
+def _boost_pose_head(models):
+    """Scale the final 6-DoF conv by 40, as the JAX package's parity tests
+    do: random weights then give a motion of a pixel or so. At the
+    near-identity motion of raw (or tempered) random weights, warped and
+    unwarped losses tie and the automask's choices fall to round-off."""
+    import torch
+    with torch.no_grad():
+        for p in models["pose"].net[3].parameters():
+            p.mul_(40.0)
+
+
+def _grad_rel(models, ref_models):
+    """Per model: relative L2 distance of the parameters' .grad."""
+    out = {}
+    for name, ref in ref_models.items():
+        pairs = [(a.grad.cpu(), b.grad) for a, b in
+                 zip(models[name].parameters(), ref.parameters())]
+        num = sum(float((a - b).norm() ** 2) for a, b in pairs)
+        den = sum(float(b.norm() ** 2) for _, b in pairs)
+        out[name] = (num / den) ** 0.5
+    return out
+
+
+def _launch_counts():
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    return {"sweep_warp": SW.warp_launches,
+            "sweep_warp_bwd": SW.warp_bwd_launches,
+            "warp_images_border": IW.launches,
+            "warp_images_border_coord_bwd": IW.bwd_launches}
+
+
+def _zero_launch_counts():
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    SW.warp_launches = SW.warp_bwd_launches = 0
+    IW.launches = IW.bwd_launches = 0
+
+
+def phase_train_path():
+    """The train path: train_step of the shipped Config(compute_dtype=
+    "float32") models (ResNet18, 640x192, 16 bins, convex upsampling) at
+    batch 2 on the card against the same step on the CPU, then one step in
+    the shipped bfloat16 config. Returns (the launches of the card's float32
+    step, the CPU models)."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import build_models
+    from movedepth_tpu_torch.train import state as S
+
+    cfg32 = Config(compute_dtype="float32")
+    cpu_models = build_models(cfg32, "cpu", torch.Generator().manual_seed(0))
+    _boost_pose_head(cpu_models)
+    models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
+    bf16_models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
+    one_thread = {k: copy.deepcopy(m) for k, m in cpu_models.items()}
+    batch = P.synthetic_batch(cfg32, 2, seed=0)
+    draws = P.sample_draws(cfg32, 2, torch.Generator().manual_seed(0))
+
+    def step(step_models, step_batch, step_draws):
+        opt, sched = S.create_optimizer(step_models, cfg32)
+        t0 = time.perf_counter()
+        out = S.train_step(step_models, opt, sched, step_batch, cfg32, False,
+                           step_draws)
+        return out, time.perf_counter() - t0
+
+    want, seconds = step(cpu_models, batch, draws)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, seconds1 = step(one_thread, batch, draws)
+    finally:
+        torch.set_num_threads(threads)
+    log(f"[train] CPU float32 train_step at batch 2, 640x192: {seconds:.1f} s "
+        f"on {threads} threads, {seconds1:.1f} s on 1")
+
+    gpu_batch = P.as_batch(batch, "cuda")
+    gpu_draws = {"box": draws["box"],
+                 "noise": [n.cuda() for n in draws["noise"]]}
+    _zero_launch_counts()
+    got, _ = step(models, gpu_batch, gpu_draws)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    log(f"[train] kernel launches of one card train_step: {launches}")
+    if list(launches.values()) != [1, 1, 2, 2]:
+        raise RuntimeError("expected sweep_warp 1 forward + 1 backward and "
+                           "warp_images_border 2 forward + 2 backward")
+    failed = []
+    for key, value in want.items():
+        rel = abs(got[key].item() - value.item()) / abs(value.item())
+        log(f"[train] float32 card vs CPU {key}: card {got[key].item():.6f}, "
+            f"CPU {value.item():.6f}, rel {rel:.3e}")
+        if not rel <= 1e-3:
+            failed.append(f"{key} rel {rel:.3e} > 1e-3")
+    # A float32 gradient of this step is fixed only up to the spread that
+    # reordering its sums gives: the CPU on 1 thread against the CPU on all
+    # of them. The card must agree with the CPU within 5e-3 or twice that
+    # spread, whichever is larger.
+    gaps = _grad_rel(models, cpu_models)
+    spreads = _grad_rel(one_thread, cpu_models)
+    for name, gap in gaps.items():
+        bound = max(5e-3, 2.0 * spreads[name])
+        log(f"[train] float32 gradient of {name}: card vs CPU relative L2 "
+            f"{gap:.3e}; CPU 1 thread vs {threads} {spreads[name]:.3e}; "
+            f"bound {bound:.3e}")
+        if not gap <= bound:
+            failed.append(f"{name} gradient {gap:.3e} > {bound:.3e}")
+    if failed:
+        raise RuntimeError("train card vs CPU gates failed: "
+                           + "; ".join(failed))
+    log("[train] float32 gates pass: every loss within 1e-3 relative, every "
+        "gradient within max(5e-3, 2 x the CPU's own thread-count spread)")
+
+    cfg16 = Config()  # bfloat16 autocast, the shipped config
+    opt, sched = S.create_optimizer(bf16_models, cfg16)
+    got16 = S.train_step(bf16_models, opt, sched, gpu_batch, cfg16, True,
+                         gpu_draws)
+    torch.cuda.synchronize()
+    bad = [k for k, v in got16.items() if not torch.isfinite(v).all()]
+    bad += [n for n, m in bf16_models.items()
+            if not all(torch.isfinite(p.grad).all() and
+                       torch.isfinite(p).all() for p in m.parameters())]
+    if bad:
+        raise RuntimeError(f"bfloat16 train_step not finite: {bad}")
+    log(f"[train] bfloat16 train_step (z-guided bins): loss "
+        f"{got16['loss'].item():.6f} (float32 on the card "
+        f"{got['loss'].item():.6f}); every loss, gradient and updated "
+        "parameter finite")
+    return launches, cpu_models
+
+
+def phase_train_throughput(cpu_models, card):
+    """train_step in bfloat16 autocast at batch 12, 640x192 (the shipped
+    config): 3 warmup steps, then the median of 10, CUDA events; then the
+    same with the plain versions swapped in for the two kernel Functions."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    from movedepth_tpu_torch.train import state as S
+
+    cfg = Config()
+    bsz = cfg.batch_size
+    batch = P.synthetic_batch(cfg, bsz, seed=1, device="cuda")
+    draws = P.sample_draws(cfg, bsz, torch.Generator("cuda").manual_seed(1),
+                           device="cuda")
+
+    def run(label):
+        models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
+        opt, sched = S.create_optimizer(models, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: S.train_step(models, opt, sched, batch, cfg,
+                                          True, draws), runs=10, warmup=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[train-throughput] {label}: train_step bfloat16 batch {bsz}, "
+            f"640x192: {ms:.3f} ms/step (median of 10), "
+            f"{bsz / ms * 1e3:.2f} examples/s, peak {peak:.2f} GiB; {card}")
+        return ms
+
+    ms = run("kernels")
+    kernels = (P.sweep_warp, P.warp_images_border)
+    P.sweep_warp = SW.sweep_warp_reference
+    P.warp_images_border = IW.warp_images_border_reference
+    try:
+        plain = run("plain versions")
+    finally:
+        P.sweep_warp, P.warp_images_border = kernels
+    log(f"[train-throughput] kernels {ms:.3f} ms/step vs plain versions "
+        f"{plain:.3f} ms/step")
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -352,9 +726,14 @@ def main():
     cpu_models = phase_main_path()
     kernel["launches"] = phase_serve(cpu_models)
     phase_throughput(cpu_models, card)
+    train_kernels = phase_train_kernels()
+    launches, train_models = phase_train_path()
+    for rec in train_kernels:
+        rec["launches"] = launches[rec["name"]]
+    phase_train_throughput(train_models, card)
     import torch
     log(card)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": [kernel] + train_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

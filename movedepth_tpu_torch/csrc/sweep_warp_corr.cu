@@ -29,83 +29,17 @@
 // TMA is left for a later optimisation, as is computing sx/sy in-kernel from
 // the depth bins (which would remove the coordinate reads).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bilinear.cuh"
 
 namespace {
-
-// 16 bytes of T as floats.
-__device__ __forceinline__ void load16(const float* __restrict__ p,
-                                       float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* __restrict__ p,
-                                       float* dst) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
-template <typename T, int C>
-__device__ __forceinline__ void load_row(const T* __restrict__ p,
-                                         float (&dst)[C]) {
-  constexpr int V = 16 / sizeof(T);
-  static_assert(C % V == 0, "C channels must fill whole 16-byte vectors");
-#pragma unroll
-  for (int i = 0; i < C / V; ++i) load16(p + i * V, dst + i * V);
-}
 
 template <typename T, int C>
 __device__ __forceinline__ void add_tap(const T* __restrict__ p, float w,
                                         float (&acc)[C]) {
   float v[C];
-  load_row<T, C>(p, v);
+  mdt::load_row<T, C>(p, v);
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = fmaf(w, v[c], acc[c]);
-}
-
-template <int G>
-__device__ __forceinline__ void store_row(float* __restrict__ p,
-                                          const float (&o)[G]) {
-  if constexpr (G % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < G / 4; ++i)
-      reinterpret_cast<float4*>(p)[i] =
-          make_float4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
-  } else {
-#pragma unroll
-    for (int g = 0; g < G; ++g) p[g] = o[g];
-  }
-}
-
-template <int G>
-__device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ p,
-                                          const float (&o)[G]) {
-  if constexpr (G % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < G / 8; ++i) {
-      uint4 u;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        h[j] = __floats2bfloat162_rn(o[8 * i + 2 * j], o[8 * i + 2 * j + 1]);
-      reinterpret_cast<uint4*>(p)[i] = u;
-    }
-  } else {
-#pragma unroll
-    for (int g = 0; g < G; ++g) p[g] = __float2bfloat16_rn(o[g]);
-  }
 }
 
 constexpr int kThreads = 128;
@@ -129,36 +63,19 @@ __global__ void __launch_bounds__(kThreads)
   const int b = static_cast<int>(bh / H);
 
   float r[C];
-  load_row<T, C>(ref + i * C, r);
+  mdt::load_row<T, C>(ref + i * C, r);
   const T* __restrict__ s = src + static_cast<long long>(b) * R * W * C;
   constexpr float kInvK = static_cast<float>(G) / static_cast<float>(C);
-  const float xmax = W + 1.0f;
-  const float ymax = R + 1.0f;
 
   for (int d = 0; d < D; ++d) {
     const long long p = ((static_cast<long long>(b) * D + d) * H + h) * W + x;
-    const float fx = fminf(fmaxf(sx[p], -2.0f), xmax);
-    const float fy = fminf(fmaxf(sy[p], -2.0f), ymax);
-    const float x0f = floorf(fx);
-    const float y0f = floorf(fy);
-    const int x0 = static_cast<int>(x0f);
-    const int y0 = static_cast<int>(y0f);
-    const float ax = fx - x0f;
-    const float ay = fy - y0f;
-    const bool vx0 = x0 >= 0 && x0 < W;
-    const bool vx1 = x0 + 1 >= 0 && x0 + 1 < W;
-    const bool vy0 = y0 >= 0 && y0 < R;
-    const bool vy1 = y0 + 1 >= 0 && y0 + 1 < R;
-
+    const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
     float acc[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-    const long long row0 = static_cast<long long>(y0) * W;
-    const long long row1 = row0 + W;
-    if (vy0 && vx0) add_tap<T, C>(s + (row0 + x0) * C, (1.0f - ax) * (1.0f - ay), acc);
-    if (vy0 && vx1) add_tap<T, C>(s + (row0 + x0 + 1) * C, ax * (1.0f - ay), acc);
-    if (vy1 && vx0) add_tap<T, C>(s + (row1 + x0) * C, (1.0f - ax) * ay, acc);
-    if (vy1 && vx1) add_tap<T, C>(s + (row1 + x0 + 1) * C, ax * ay, acc);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (t.valid[k]) add_tap<T, C>(s + mdt::tap_offset(t, k, W) * C, t.w[k], acc);
 
     // correlate, then the group mean over k under the (k*G + g) order
     float o[G];
@@ -168,7 +85,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < C; ++c) o[c % G] = fmaf(acc[c], r[c], o[c % G]);
 #pragma unroll
     for (int g = 0; g < G; ++g) o[g] *= kInvK;
-    store_row<G>(out + p * G, o);
+    mdt::store_row<T, G>(out + p * G, o);
   }
 }
 

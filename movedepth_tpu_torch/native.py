@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
-compiled for Hopper (``sm_90a``) into a shared library under
-``build/movedepth_tpu_torch/`` at the root of the checkout. The library's
-file name carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads as it is.
+Each ``csrc/<name>.cu`` exposes a plain C interface and may include the
+shared headers ``csrc/*.cuh``. At first use it is compiled for Hopper
+(``sm_90a``) into a shared library under ``build/movedepth_tpu_torch/`` at
+the root of the checkout. The library's file name carries a hash of the
+source, the headers and the flags, so an edited source rebuilds and an
+unchanged one loads as it is. :func:`build_all` compiles several sources
+at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -36,24 +38,55 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to under the current sources."""
+    key = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        key += header.read_bytes()
+    key += " ".join(NVCC_FLAGS).encode()
+    return BUILD_DIR / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
+
+
+def build_all(names) -> None:
+    """Compile every missing library of ``names`` in parallel: all nvcc
+    processes start together. Raises if any build fails."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    t0 = time.perf_counter()
+    try:
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((name, tmp, proc))
+        failed = []
+        for name, tmp, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on csrc/{name}.cu:\n{err}")
+                continue
+            # atomic: a concurrent build never sees half a file
+            os.replace(tmp, library_path(name))
+            build_reports[name] = (time.perf_counter() - t0, err)
+    finally:
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
-    if name in _libs:
-        return _libs[name]
-    src = CSRC / f"{name}.cu"
-    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    so = BUILD_DIR / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-        build_reports[name] = (time.perf_counter() - t0, proc.stderr)
-    _libs[name] = ctypes.CDLL(str(so))
+    if name not in _libs:
+        build_all([name])
+        _libs[name] = ctypes.CDLL(str(library_path(name)))
     return _libs[name]

@@ -1,15 +1,19 @@
-"""Inference pipeline of the port (port of the inference half of
-movedepth_tpu/pipeline.py).
+"""The MoveDepth pipeline of the port (port of movedepth_tpu/pipeline.py):
+inference (``forward_infer``, ``forward_infer_fused``,
+``forward_mono_infer``) and the training forward with all losses
+(``forward_train``).
 
-Batches and outputs keep the JAX package's layouts and keys: ``color`` is
-(B, F, H, W, 3) with frames in ``matching_ids`` order, ``K``/``inv_K`` are
-(B, 4, 4), the optional ``relative_pose`` is (B, F-1, 4, 4); depth and
-disparity maps come back as (B, H, W). Inside, models run in NCHW.
+Batches and outputs keep the JAX package's layouts and keys: ``color`` and
+``color_aug`` are (B, F, H, W, 3) with frames in ``frame_ids`` order
+(``matching_ids`` at inference), ``color_pyr_s`` (B, H/2^s, W/2^s, 3),
+``K``/``inv_K`` (B, 4, 4), the optional ``relative_pose`` (B, F-1, 4, 4);
+depth and disparity maps come back as (B, H, W). Inside, models run in
+NCHW.
 
 Models run under ``torch.autocast("cuda", torch.bfloat16)`` when
 ``cfg.compute_dtype`` is "bfloat16" and the batch is on a CUDA device, and
-in float32 otherwise. Geometry, depth bins, the softmax and the decode
-always run in float32, outside autocast.
+in float32 otherwise. Geometry, depth bins, the softmax, the decode, the
+losses and the image warps always run in float32, outside autocast.
 """
 
 from __future__ import annotations
@@ -25,16 +29,37 @@ from movedepth_tpu.data.synthetic import make_batch
 from movedepth_tpu_torch.ops.costvolume import (
     fuse_frames,
     localmax,
+    reduce_cost_groups,
+    schedule_depth_bins,
     schedule_depth_bins_z,
     sweep_grid,
 )
 from movedepth_tpu_torch.ops.geometry import (
+    backproject,
     disp_to_depth,
+    project,
     transformation_from_parameters,
 )
-from movedepth_tpu_torch.ops.losses import entropy
+from movedepth_tpu_torch.ops.image_warp import warp_images_border
+from movedepth_tpu_torch.ops.losses import (
+    entropy,
+    masked_mean,
+    min_reprojection_with_automask,
+    reprojection_loss,
+    smooth_loss,
+    ssim,
+)
+from movedepth_tpu_torch.ops.masking import (
+    geometric_consistency_mask,
+    random_image_mask,
+    sample_box,
+)
 from movedepth_tpu_torch.ops.sampling import resize_bilinear
-from movedepth_tpu_torch.ops.sweep_warp import grid_to_pixel, sweep_warp_corr
+from movedepth_tpu_torch.ops.sweep_warp import (
+    grid_to_pixel,
+    sweep_warp,
+    sweep_warp_corr,
+)
 from movedepth_tpu_torch.ops.upsample import convex_upsample
 
 
@@ -71,23 +96,27 @@ def scale_intrinsics(K, scale: int):
     return K
 
 
+def _pose(models, color, f, cfg: Config):
+    """PoseNet on the (frame f, reference) pair of ``color`` (B, F, H, W, 3),
+    frames in ``cfg.frame_ids`` order: the 4x4 camera transform (B, 4, 4),
+    inverted for a past frame."""
+    fid_to_idx = {g: i for i, g in enumerate(cfg.frame_ids)}
+    pair = (color[:, fid_to_idx[f]], color[:, 0])
+    if f > 0:
+        pair = pair[::-1]
+    with _models_ctx(cfg, color.device):
+        feats = models["pose_encoder"](_nchw(torch.cat(pair, dim=-1)))
+        aa, tr = models["pose"]([feats])
+    return transformation_from_parameters(aa[:, 0, 0].float(),
+                                          tr[:, 0, 0].float(), invert=f < 0)
+
+
 def predict_poses(models, color, cfg: Config):
-    """PoseNet on (frame, reference) pairs of ``color`` (B, F, H, W, 3),
-    frames in ``cfg.frame_ids`` order -> relative poses (B, M, 4, 4) of
-    ``matching_ids[1:]``, each the (inverted for a past frame)
-    transform from the 6-DoF prediction."""
-    fid_to_idx = {f: i for i, f in enumerate(cfg.frame_ids)}
-    rel = []
-    for f in cfg.matching_ids[1:]:
-        pair = (color[:, fid_to_idx[f]], color[:, 0])
-        if f > 0:
-            pair = pair[::-1]
-        with _models_ctx(cfg, color.device):
-            feats = models["pose_encoder"](_nchw(torch.cat(pair, dim=-1)))
-            aa, tr = models["pose"]([feats])
-        rel.append(transformation_from_parameters(
-            aa[:, 0, 0].float(), tr[:, 0, 0].float(), invert=f < 0))
-    return torch.stack(rel, dim=1)
+    """Relative poses (B, M, 4, 4) of ``matching_ids[1:]`` from PoseNet on
+    (frame, reference) pairs of ``color`` (B, F, H, W, 3), frames in
+    ``cfg.frame_ids`` order."""
+    return torch.stack([_pose(models, color, f, cfg)
+                        for f in cfg.matching_ids[1:]], dim=1)
 
 
 def poses_from_batch(batch, cfg: Config):
@@ -210,3 +239,313 @@ def forward_mono_infer(models, batch, cfg: Config):
     scaled_disp, depth = disp_to_depth(disps[("disp", 0)], cfg.min_depth,
                                        cfg.max_depth)
     return {"disp_mono": scaled_disp, "depth_mono": depth}
+
+
+# ------------------------------------------------------------------ training
+
+def sample_draws(cfg: Config, batch_size: int, generator=None,
+                 device="cpu"):
+    """The randomness of one training forward: the masked-augmentation box
+    (x0, y0) and the automask tiebreak noise, one (B, H, W, 1) standard
+    normal map per mono scale (none with ``disable_automasking``) and one
+    more with ``mask_mvs_auto``, in the order ``forward_train`` uses them.
+    ``generator`` (torch's default one if None) must live on ``device``."""
+    h, w = cfg.height, cfg.width
+    box = sample_box(h, w, (h // 3, w // 3), generator, device)
+    n = (0 if cfg.disable_automasking else len(cfg.scales)) + int(
+        cfg.mask_mvs_auto)
+    noise = torch.randn((n, batch_size, h, w, 1), generator=generator,
+                        device=device)
+    return {"box": box, "noise": list(noise)}
+
+
+def predict_train_poses(models, batch, cfg: Config):
+    """Training poses: ({frame_id: cam_T_cam (B, 4, 4)} for every
+    ``frame_ids[1:]`` frame, with a live gradient, and the detached
+    relative poses (B, M, 4, 4) of ``matching_ids[1:]``)."""
+    if cfg.load_pose:
+        rel_all = batch["relative_pose"]
+        cam_T_cam = {f: rel_all[:, i] for i, f in enumerate(cfg.frame_ids[1:])}
+    else:
+        cam_T_cam = {f: _pose(models, batch["color_aug"], f, cfg)
+                     for f in cfg.frame_ids[1:]}
+    rel = torch.stack([cam_T_cam[f].detach() for f in cfg.matching_ids[1:]],
+                      dim=1)
+    return cam_T_cam, rel
+
+
+def compute_depth_bins(disp_prior, rel, use_z_bins: bool, cfg: Config):
+    """Depth hypotheses (B, D, h, w) around the detached mono prior: the
+    z-guided schedule when ``use_z_bins`` (epoch > ztrans_start_epc), the
+    plain one otherwise."""
+    _, depth_prior = disp_to_depth(disp_prior, cfg.min_depth, cfg.max_depth)
+    if use_z_bins:
+        z = cfg.z_scale * rel[:, 0, 2, 3]
+        return schedule_depth_bins_z(depth_prior, cfg.num_depth_bins,
+                                     cfg.depth_bin_fac, z[:, None, None],
+                                     cfg.schedule_type)
+    return schedule_depth_bins(depth_prior, cfg.num_depth_bins,
+                               cfg.depth_bin_fac, cfg.schedule_type)
+
+
+def mvs_depth_two_pass(models, ref_a, ref_b, src_matches, depth_bins, K_p,
+                       invK_p, rel, cfg: Config):
+    """The main and the masked-augmentation cost volumes from ONE sweep
+    warp per source frame: the warp depends only on the source features and
+    the coordinates, so both reference features correlate with it. Each
+    volume goes through Reg3D on its own (own batch statistics).
+
+    ref_a, ref_b and each of src_matches: (B, C, h, w) FPN matching
+    features. Returns (depth_a (B, h, w), cost_prob_a (B, D, h, w),
+    depth_b (B, h, w)).
+    """
+    h, w = depth_bins.shape[-2:]
+    ref_a = ref_a.permute(0, 2, 3, 1)[:, None]
+    ref_b = ref_b.permute(0, 2, 3, 1)[:, None]
+    costs_a, costs_b = [], []
+    for f_idx, src in enumerate(src_matches):
+        grid = sweep_grid(depth_bins, K_p, invK_p, rel[:, f_idx])
+        sx, sy = grid_to_pixel(grid, h, w)
+        warped = sweep_warp(src.permute(0, 2, 3, 1).contiguous(),
+                            sx.contiguous(), sy.contiguous())
+        costs_a.append(reduce_cost_groups(warped * ref_a, cfg.reg3d_c))
+        costs_b.append(reduce_cost_groups(warped * ref_b, cfg.reg3d_c))
+    out = []
+    for costs in (costs_a, costs_b):
+        cor = fuse_frames(costs, weight_axis="group")  # (B, D, h, w, G)
+        with _models_ctx(cfg, cor.device):
+            logits = models["reg3d"](cor.permute(0, 4, 1, 2, 3))
+        cost_prob = torch.softmax(logits.float(), dim=1)
+        depth = localmax(cost_prob, cfg.norm_radius, cfg.num_depth_bins,
+                         1.0 / depth_bins[:, -1], 1.0 / depth_bins[:, 0])
+        out.append((depth, cost_prob))
+    return out[0][0], out[0][1], out[1][0]
+
+
+def _multi_warp(src, grid):
+    """Warp one source image (B, H, W, 3) by K grids (B, K, H, W, 2) in
+    [-1, 1]: (B, K, H, W, 3), border mode, one kernel launch."""
+    h, w = src.shape[1:3]
+    sx, sy = grid_to_pixel(grid, h, w)
+    return warp_images_border(src, sx.contiguous(), sy.contiguous())
+
+
+def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
+                       cfg: Config, noise, mvs_mask=None):
+    """All reprojection losses, one multi-warp per source frame.
+
+    The K = num_scales + 2 depth maps (mono scales, MVS, fused) are
+    backprojected and warped together. Pose gradients flow through the
+    mono scales only: the MVS and fused maps use the detached pose.
+    ``noise`` holds the automask tiebreaks in use order (``sample_draws``).
+    Returns (losses dict, {frame_id: warped scale-0 image}).
+    """
+    color = batch["color"]
+    target = color[:, 0]
+    b, h, w = target.shape[:3]
+    K0, invK0 = batch["K"], batch["inv_K"]
+    fid_to_idx = {f: i for i, f in enumerate(cfg.frame_ids)}
+    nsc = cfg.num_scales
+    k_all = nsc + 2
+    noise = iter(noise)
+
+    depth_scales = []
+    for sc in cfg.scales:
+        dfull = resize_bilinear(disps[("disp", sc)], (h, w),
+                                align_corners=False)
+        depth_scales.append(disp_to_depth(dfull, cfg.min_depth,
+                                          cfg.max_depth)[1])
+    depth_all = torch.stack(depth_scales + [depth_mvs_full, fused_depth],
+                            dim=1)  # (B, K, H, W)
+    pts = backproject(depth_all, invK0[:, None])  # (B, K, 4, HW)
+
+    mono_reproj, mvs_reproj, fuse_reproj, warped_log = [], [], [], {}
+    for f in cfg.frame_ids[1:]:
+        T_live = cam_T_cam[f]
+        T_det = T_live.detach()
+        T_all = torch.stack([T_live] * nsc + [T_det, T_det], dim=1)
+        grid = project(pts, K0[:, None], T_all, h, w)  # (B, K, H, W, 2)
+        warped = _multi_warp(color[:, fid_to_idx[f]], grid)
+        wf = warped.reshape(b * k_all, h, w, 3)
+        tf = target[:, None].expand(b, k_all, h, w, 3).reshape(wf.shape)
+        l1 = torch.mean(torch.abs(tf - wf), dim=-1, keepdim=True)
+        rp = l1
+        if not cfg.no_ssim:
+            sm = torch.mean(ssim(wf, tf), dim=-1, keepdim=True)
+            rp = cfg.ssim_lw * sm + (1.0 - cfg.ssim_lw) * l1
+        rp = rp.view(b, k_all, h, w, 1)
+        l1 = l1.view(b, k_all, h, w, 1)
+        warped_log[f] = warped[:, 0]
+        mono_reproj.append(rp[:, :nsc])
+        mvs_reproj.append(rp[:, nsc])
+        fuse_reproj.append(l1[:, nsc + 1])  # fuse: pure L1 (ssim_lw = 0)
+
+    losses = {}
+    # mono: per-scale min-reprojection + automask + smoothness
+    ident = torch.cat([reprojection_loss(color[:, fid_to_idx[f]], target,
+                                         cfg.ssim_lw, not cfg.no_ssim)
+                       for f in cfg.frame_ids[1:]], dim=-1)
+    if cfg.avg_reprojection:
+        ident = torch.mean(ident, dim=-1, keepdim=True)
+    total = 0.0
+    for k, sc in enumerate(cfg.scales):
+        reprojs = torch.cat([m[:, k] for m in mono_reproj], dim=-1)
+        if cfg.avg_reprojection:
+            reprojs = torch.mean(reprojs, dim=-1, keepdim=True)
+        if not cfg.disable_automasking:
+            reproj, mask = min_reprojection_with_automask(reprojs, ident,
+                                                          next(noise))
+        else:
+            reproj = torch.amin(reprojs, dim=-1, keepdim=True)
+            mask = torch.ones_like(reproj)
+        rl = masked_mean(reproj, mask)
+        disp = disps[("disp", sc)][..., None]
+        color_s = target if sc == 0 else batch[f"color_pyr_{sc}"]
+        mean_disp = torch.mean(disp, dim=(1, 2), keepdim=True)
+        sl = smooth_loss(disp / (mean_disp + 1e-7), color_s)
+        losses[f"mono_smooth_loss/{sc}"] = sl
+        scale_loss = rl + cfg.disparity_smoothness * sl / (2 ** sc)
+        losses[f"loss/{sc}"] = scale_loss
+        total = total + scale_loss
+    losses["mono_loss"] = total / nsc
+
+    # MVS: min over frames, optional conf/dist/geo masks (the reference's
+    # MVS automask is overwritten with ones, so it is not computed)
+    reproj = torch.amin(torch.cat(mvs_reproj, dim=-1), dim=-1, keepdim=True)
+    mask = torch.ones_like(reproj) if mvs_mask is None else mvs_mask
+    losses["mvs_reproj_loss"] = masked_mean(reproj, mask)
+    mvs_total = losses["mvs_reproj_loss"]
+    if cfg.mvs_smooth_loss:
+        d = depth_mvs_full[..., None]
+        mean_d = torch.mean(d, dim=(1, 2), keepdim=True)
+        sl = smooth_loss(d / (mean_d + 1e-7), target)
+        losses["mvs_smooth_loss/0"] = sl
+        mvs_total = mvs_total + cfg.disparity_smoothness * sl
+    losses["mvs_loss"] = mvs_total
+
+    # fuse: pure L1, optional automask
+    fuse_stack = torch.cat(fuse_reproj, dim=-1)
+    if cfg.mask_mvs_auto:
+        ident_l1 = torch.cat([reprojection_loss(color[:, fid_to_idx[f]],
+                                                target, 0.0, not cfg.no_ssim)
+                              for f in cfg.frame_ids[1:]], dim=-1)
+        reproj, mask = min_reprojection_with_automask(fuse_stack, ident_l1,
+                                                      next(noise))
+    else:
+        reproj = torch.amin(fuse_stack, dim=-1, keepdim=True)
+        mask = torch.ones_like(reproj)
+    losses["fuse_reproj_loss"] = masked_mean(reproj, mask)
+    return losses, warped_log
+
+
+def compute_mvs_masks(cost_prob, disp0, batch, cam_T_cam, depth_mvs_full,
+                      cfg: Config):
+    """Optional MVS-loss masks, (B, H, W, 1) float, or None when every flag
+    is off. conf: the depth-slice-wise bilinearly upsampled probability
+    volume's max over D > photo_conf; dist: full-resolution mono disparity
+    > dist_thres; geo: forward-backward consistency per source frame."""
+    if not (cfg.mask_mvs_conf or cfg.mask_mvs_dist or cfg.mask_mvs_geo):
+        return None
+    h, w = cfg.height, cfg.width
+    mask = torch.ones((batch["color"].shape[0], h, w, 1),
+                      device=cost_prob.device)
+    if cfg.mask_mvs_conf:
+        up = resize_bilinear(cost_prob, (h, w), align_corners=True)
+        mask = mask * (torch.amax(up, dim=1)[..., None] > cfg.photo_conf)
+    if cfg.mask_mvs_dist:
+        mask = mask * (disp0[..., None] > cfg.dist_thres)
+    if cfg.mask_mvs_geo:
+        for f in cfg.frame_ids[1:]:
+            geo = geometric_consistency_mask(
+                depth_mvs_full, batch["K"], cam_T_cam[f].detach(),
+                depth_mvs_full, batch["K"], cfg.pixel_thres, cfg.depth_thres)
+            mask = mask * geo[..., None]
+    return mask
+
+
+def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws):
+    """The training forward: every model, both cost-volume passes and all
+    losses, with the JAX package's stop-gradients (the relative poses, the
+    detached pose of the MVS and fused warps, the depth prior, both inputs
+    of the fused depth).
+
+    The models' mode (train or eval) is the caller's; ``draws`` comes from
+    :func:`sample_draws`. The three FPN calls (reference, source, masked
+    reference) stay separate: in training each normalizes with its own
+    batch statistics. Returns (total loss, losses dict, outputs dict); the
+    losses dict has the JAX package's keys.
+    """
+    color_aug = batch["color_aug"]
+    h, w = cfg.height, cfg.width
+    fid_to_idx = {f: i for i, f in enumerate(cfg.frame_ids)}
+    dev = color_aug.device
+
+    cam_T_cam, rel = predict_train_poses(models, batch, cfg)
+
+    with _models_ctx(cfg, dev):
+        ref_match, ref_ctx = models["mvs_encoder"](_nchw(color_aug[:, 0]))
+        src_matches = [
+            models["mvs_encoder"](_nchw(color_aug[:, fid_to_idx[f]]))[0]
+            for f in cfg.matching_ids[1:]]
+    disps = _mono(models, color_aug[:, 0], cfg)
+
+    disp0_full = resize_bilinear(disps[("disp", 0)], (h, w),
+                                 align_corners=False)
+    _, mono_depth0 = disp_to_depth(disp0_full, cfg.min_depth, cfg.max_depth)
+
+    bins = compute_depth_bins(disps[("disp", cfg.prior_scale)].detach(), rel,
+                              use_z_bins, cfg)
+    K_p = scale_intrinsics(batch["K"], cfg.prior_scale)
+
+    masked_img, aug_mask = random_image_mask(color_aug[:, 0],
+                                             (h // 3, w // 3), draws["box"])
+    with _models_ctx(cfg, dev):
+        ref_aug, _ = models["mvs_encoder"](_nchw(masked_img))
+    depth_mvs, cost_prob, depth_mvs_aug = mvs_depth_two_pass(
+        models, ref_match, ref_aug, src_matches, bins, K_p,
+        torch.linalg.inv(K_p), rel, cfg)
+    with _models_ctx(cfg, dev):
+        trust_mono = models["mask_cnn"](entropy(cost_prob, dim=1,
+                                                keepdim=True))
+    low_mask = resize_bilinear(_nchw(aug_mask), depth_mvs_aug.shape[1:],
+                               align_corners=True)
+    low_mask = (low_mask.sum(dim=1) > 0).to(depth_mvs.dtype)
+    diff = torch.abs(depth_mvs_aug - depth_mvs)
+    sl1 = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
+    # the reference weights the masked loss by mask_lw twice
+    masked_loss = masked_mean(sl1, low_mask) * cfg.mask_lw ** 2
+
+    if cfg.convex_up:
+        with _models_ctx(cfg, dev):
+            up_mask = models["up"](ref_ctx)
+        depth_mvs_full = convex_upsample(depth_mvs, up_mask.float(),
+                                         cfg.prior_scale)
+    else:
+        depth_mvs_full = resize_bilinear(depth_mvs, (h, w),
+                                         align_corners=True)
+
+    # fusion: only mask_cnn gets a gradient
+    trust_full = resize_bilinear(trust_mono[:, 0].float(), (h, w),
+                                 align_corners=True)
+    fused = ((1.0 - trust_full) * depth_mvs_full.detach()
+             + trust_full * mono_depth0.detach())
+
+    mvs_mask = compute_mvs_masks(cost_prob, disp0_full, batch, cam_T_cam,
+                                 depth_mvs_full, cfg)
+    losses, warped_log = photometric_losses(
+        disps, depth_mvs_full, fused, batch, cam_T_cam, cfg, draws["noise"],
+        mvs_mask=mvs_mask)
+    losses["masked_loss"] = masked_loss
+    total = (losses["mono_loss"] + losses["masked_loss"]
+             + losses["mvs_loss"] + losses["fuse_reproj_loss"])
+    losses["loss"] = total
+    outputs = {
+        "disp_0": disps[("disp", 0)],
+        "depth_mono": mono_depth0,
+        "depth_mvs": depth_mvs_full,
+        "trust_mono_mask": trust_full,
+        "fused_depth": fused,
+        "warped": warped_log,
+        "cam_T_cam": cam_T_cam,
+    }
+    return total, losses, outputs

@@ -64,8 +64,10 @@ def state_dict_from_jax(name: str, variables: Mapping,
                         scales=(0, 1, 2, 3)) -> Dict[str, torch.Tensor]:
     """One model's flax variables ({'params', 'batch_stats'}, numpy or
     jax arrays) -> the port's state_dict for model ``name`` (one of
-    ``ALL_MODELS``)."""
-    stats = variables.get("batch_stats", {})
+    ``ALL_MODELS``). A params-only tree (gradients, or parameters after an
+    optimizer update) gives the parameters alone, without BatchNorm
+    running statistics."""
+    stats = variables.get("batch_stats")
     out = {}
     for path, node in _leaves(variables["params"]):
         prefix = _prefix(name, path, scales)
@@ -76,17 +78,18 @@ def state_dict_from_jax(name: str, variables: Mapping,
             if "bias" in node:
                 out[prefix + ".bias"] = node["bias"]
         else:
+            out.update({prefix + ".weight": node["scale"],
+                        prefix + ".bias": node["bias"]})
+            if stats is None:
+                continue
             st = stats
             for p in path:
                 st = st[p]
-            out.update({prefix + ".weight": node["scale"],
-                        prefix + ".bias": node["bias"],
-                        prefix + ".running_mean": st["mean"],
+            out.update({prefix + ".running_mean": st["mean"],
                         prefix + ".running_var": st["var"],
                         prefix + ".num_batches_tracked": np.zeros((),
                                                                   np.int64)})
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
 def load_reference_folder(folder: str, models: Mapping) -> list:

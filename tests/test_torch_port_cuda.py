@@ -7,6 +7,8 @@ so this file imports none and takes no fixture from tests/conftest.py
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,6 @@ from movedepth_tpu_torch.ops.costvolume import schedule_depth_bins, sweep_grid
 from movedepth_tpu_torch.ops.geometry import transformation_from_parameters
 
 pytestmark = pytest.mark.cuda
-
 
 @pytest.fixture
 def device(monkeypatch):
@@ -70,6 +71,140 @@ def test_kernel_out_of_frame_gives_exact_zeros(device):
     src, ref, sx, sy = (t.to(device) for t in _sweep_inputs())
     got = SW.sweep_warp_corr(src, ref, sx + 1000.0, sy, 16)
     assert torch.count_nonzero(got).item() == 0
+
+
+def _warp_coords(sx, sy, w, h):
+    """Sweep coordinates with a few exact-bound and out-of-frame points."""
+    sx, sy = sx.clone(), sy.clone()
+    sx[:, 0, 0, :8] = torch.tensor([0.0, w - 1.0, -0.5, w - 0.5, -3.0,
+                                    w + 4.0, 0.0, w - 1.0])
+    sy[:, 0, 0, :8] = torch.tensor([0.0, h - 1.0, 3.0, 2.0, h - 0.5,
+                                    -0.5, h - 1.0, 0.0])
+    return sx, sy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sweep_warp_kernels_match_plain_version(device, dtype):
+    """Forward within 1e-5 of the range (plus one bf16 ulp in bfloat16),
+    dsrc within 1e-5 of its range against the plain version's autograd."""
+    src, _, sx, sy = _sweep_inputs()
+    sx, sy = _warp_coords(sx, sy, src.shape[2], src.shape[1])
+    src, sx, sy = (t.to(device) for t in (src.to(dtype), sx, sy))
+    g = torch.randn(sx.shape + src.shape[-1:],
+                    generator=torch.Generator().manual_seed(1)).to(device)
+    fwd, bwd = SW.warp_launches, SW.warp_bwd_launches
+    leaf = src.clone().requires_grad_()
+    got = SW.sweep_warp(leaf, sx, sy)
+    (got.float() * g).sum().backward()
+    assert (SW.warp_launches, SW.warp_bwd_launches) == (fwd + 1, bwd + 1)
+    ref_leaf = src.float().clone().requires_grad_()
+    want = SW.sweep_warp_reference(ref_leaf, sx, sy)
+    (want * g.to(dtype).float()).sum().backward()
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and leaf.grad.dtype == dtype
+    tol = 1e-5 * want.abs().max()
+    dtol = 1e-5 * ref_leaf.grad.abs().max()
+    if dtype == torch.bfloat16:
+        tol = tol + torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - 7)
+        dtol = dtol + torch.exp2(torch.floor(torch.log2(
+            ref_leaf.grad.abs().clamp_min(1e-30))) - 7)
+    assert torch.all((got.float() - want).abs() <= tol)
+    assert torch.all((leaf.grad.float() - ref_leaf.grad).abs() <= dtol)
+
+
+def _image_inputs(b=2, k=6, h=48, w=96):
+    g = torch.Generator().manual_seed(2)
+    src = torch.rand(b, h, w, 3, generator=g)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    shift = torch.randn(b, k, 1, 1, generator=g) * 2.0
+    sx = (xs + shift + 0.3 * torch.randn(b, k, h, w, generator=g)).contiguous()
+    sy = (ys - shift + 0.3 * torch.randn(b, k, h, w, generator=g)).contiguous()
+    sx[:, :, 0, :6] = torch.tensor([0.0, w - 1.0, -2.0, w + 3.0, 0.0, w - 1.0])
+    sy[:, :, 0, :6] = torch.tensor([h - 1.0, 0.0, h - 1.0, -1.0, 0.0, h - 1.0])
+    return src, sx, sy
+
+
+def test_image_warp_kernels_match_plain_version(device):
+    """Border-mode forward and dsx/dsy within 1e-5 of their range against
+    the plain version (and its autograd), exact bounds and out-of-frame
+    coordinates included."""
+    from movedepth_tpu_torch.ops import image_warp as IW
+    src, sx, sy = (t.to(device) for t in _image_inputs())
+    g = torch.randn(sx.shape + (3,),
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    fwd, bwd = IW.launches, IW.bwd_launches
+    x, y = sx.clone().requires_grad_(), sy.clone().requires_grad_()
+    got = IW.warp_images_border(src, x, y)
+    (got * g).sum().backward()
+    assert (IW.launches, IW.bwd_launches) == (fwd + 1, bwd + 1)
+    xr, yr = sx.clone().requires_grad_(), sy.clone().requires_grad_()
+    want = IW.warp_images_border_reference(src, xr, yr)
+    (want * g).sum().backward()
+    torch.cuda.synchronize()
+    for a, b in ((got, want), (x.grad, xr.grad), (y.grad, yr.grad)):
+        assert torch.all((a - b).abs() <= 1e-5 * b.abs().max())
+
+
+def _grad_rel(models, ref_models):
+    """Per model: relative L2 distance of the parameters' .grad."""
+    out = {}
+    for name, ref in ref_models.items():
+        pairs = [(a.grad.cpu(), b.grad) for a, b in
+                 zip(models[name].parameters(), ref.parameters())]
+        num = sum(float((a - b).norm() ** 2) for a, b in pairs)
+        den = sum(float(b.norm() ** 2) for _, b in pairs)
+        out[name] = (num / den) ** 0.5
+    return out
+
+
+def test_train_step_card_matches_cpu(device):
+    """One train step of the port on the card (through the kernels) against
+    the same step on the CPU (through the plain versions), float32, 64x96:
+    the kernel launches of one step, every loss within 1e-3, and every
+    model's gradient within 5e-3 or twice the spread the CPU shows between
+    1 thread and all of them, whichever is larger (a float32 gradient of
+    this step is fixed only up to the order of its sums)."""
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from movedepth_tpu_torch.train import state as S
+    cfg = Config(height=64, width=96, compute_dtype="float32")
+    models = build_models(cfg)
+    with torch.no_grad():  # a few-pixel motion: no automask near-ties
+        for p in models["pose"].net[3].parameters():
+            p.mul_(40.0)
+    batch = P.synthetic_batch(cfg, 2, seed=11)
+    draws = P.sample_draws(cfg, 2, torch.Generator().manual_seed(5))
+    gpu_models = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
+    one_thread = {k: copy.deepcopy(m) for k, m in models.items()}
+
+    def step(step_models, step_batch, step_draws):
+        opt, sched = S.create_optimizer(step_models, cfg)
+        return S.train_step(step_models, opt, sched, step_batch, cfg, False,
+                            step_draws)
+
+    want = step(models, batch, draws)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        step(one_thread, batch, draws)
+    finally:
+        torch.set_num_threads(threads)
+    counts = (SW.warp_launches, SW.warp_bwd_launches, IW.launches,
+              IW.bwd_launches)
+    got = step(gpu_models, {k: v.to(device) for k, v in batch.items()},
+               {"box": draws["box"],
+                "noise": [n.to(device) for n in draws["noise"]]})
+    assert (SW.warp_launches - counts[0], SW.warp_bwd_launches - counts[1],
+            IW.launches - counts[2], IW.bwd_launches - counts[3]) \
+        == (1, 1, 2, 2)
+    for k in want:
+        np.testing.assert_allclose(got[k].item(), want[k].item(), rtol=1e-3,
+                                   err_msg=k)
+    spreads = _grad_rel(one_thread, models)
+    for name, gap in _grad_rel(gpu_models, models).items():
+        assert gap <= max(5e-3, 2.0 * spreads[name]), (name, gap, spreads)
 
 
 def test_forward_infer_fused_card_matches_cpu(device):

@@ -16,6 +16,8 @@ PORT_MODULES = (
     "movedepth_tpu_torch.ops.costvolume", "movedepth_tpu_torch.ops.geometry",
     "movedepth_tpu_torch.ops.losses", "movedepth_tpu_torch.ops.sampling",
     "movedepth_tpu_torch.ops.sweep_warp", "movedepth_tpu_torch.ops.upsample",
+    "movedepth_tpu_torch.ops.image_warp", "movedepth_tpu_torch.ops.masking",
+    "movedepth_tpu_torch.train", "movedepth_tpu_torch.train.state",
 )
 
 
