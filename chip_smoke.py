@@ -20,14 +20,35 @@ without printing the final ok line:
 7. train kernels: the sweep warp and the border image warp, forward and
    backward, against their plain versions (and autograd) at the shipped
    train shapes (batch 12), exact-bound and out-of-frame coordinates
-   included; times kernel and plain version, forward and backward.
+   included; times kernel, plain version and library call.
+7b. the L1 epilogue: the border image warp with a target (warped stack and
+   L1 map, and the coordinate gradient with both cotangents) against its
+   plain version at batch 12, timed against it and against the two-step
+   path (the row-4 warp kernel, then the L1 in torch).
 8. train path: one train_step of the shipped Config(compute_dtype=
    "float32") models at 640x192, batch 2, on the card against the same step
    on the CPU (every loss; every model's gradient, against the spread the
    CPU shows between 1 thread and all of them), the kernel launches of that
    step, then one step of the shipped bfloat16 config.
+8b. phase 8 with kernel_l1 on, under the same gates; its launches (the L1
+   kernel 2 forward + 2 backward, the plain warp kernel none); the same
+   losses as phase 8's card step within 1e-5.
 9. train throughput: train_step in bfloat16 autocast at batch 12, with the
-   kernels and with this script swapping in the plain versions.
+   kernels and with this script swapping in the plain versions; 9b: with
+   kernel_l1 on.
+10. train CLI, this slice's path: ``python -m movedepth_tpu_torch.cli.train``
+   on a KITTI-layout tree of synthetic 1242x375 JPEGs at 640x192, batch 12,
+   bfloat16, --kernel_l1, 2 epochs with validation and checkpoints, then a
+   resume from ``last`` for a third epoch; its kernel launches, wall
+   ms/step against phase 9b's train_step.
+11. the stage ablations of the sweep kernel at batch 128 (``full`` bit for
+   bit the shipped kernel), and the public wrapper against the bare launch.
+
+Every kernel's record carries its bound: the least time the card could
+take, the larger of the bytes it must move over 3.35 TB/s and its float32
+operations over 67 TFLOP/s (H100 SXM at 700 W), and the time of one
+PyTorch call computing the same function where there is one
+(``F.grid_sample`` and its backward for rows 2-5).
 
 The lines before the last carry the card's nvidia-smi name and power limit
 and a JSON summary of every kernel; the last line is the JSON ok record.
@@ -35,10 +56,11 @@ and a JSON summary of every kernel; the last line is the JSON ok record.
 
 import copy
 import json
+import math
 import os
 import re
-import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -46,7 +68,71 @@ KERNEL_SHAPE = dict(B=16, R=48, W=160, C=32, D=16, G=16)
 # the shipped train step's kernel shapes: batch 12, the prior-scale sweep
 # (16 bins, 32 FPN channels) and the full-resolution warps of K = 6 maps
 TRAIN_SHAPE = dict(B=12, R=48, W=160, C=32, D=16, H=192, X=640, K=6)
-KERNELS = ("sweep_warp_corr", "sweep_warp", "image_warp")
+KERNELS = ("sweep_warp_corr", "sweep_warp", "image_warp",
+           "sweep_warp_corr_variants")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM and float32 outside the
+# tensor cores; every kernel here does float32 arithmetic
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+def bound(nbytes, flops):
+    """The least time the card could take for work that must move
+    ``nbytes`` and do ``flops`` float32 operations."""
+    b_ms, f_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(b_ms, f_ms),
+            "bound_by": "bytes" if b_ms >= f_ms else "operations"}
+
+
+# Work of each kernel from its shapes: each input read once, each output
+# written once; operations counted per output point.
+def sweep_corr_work(b, r, w, c, d, h, g, esize):
+    """src (B,R,W,C), ref (B,H,W,C), sx/sy (B,D,H,W) f32 -> (B,D,H,W,G):
+    four taps of C multiply-adds, the product with ref, the group mean and
+    ~8 operations of tap weights per point."""
+    pts = b * d * h * w
+    return (b * (r + h) * w * c * esize + 2 * pts * 4 + pts * g * esize,
+            pts * (8 * c + c + c + g + 8))
+
+
+def sweep_warp_work(b, r, w, c, d, h, esize, backward=False):
+    """Forward: src, coordinates -> (B,D,H,W,C). Backward: the (B,D,H,W,C)
+    gradient and the coordinates -> dsrc (B,R,W,C)."""
+    pts = b * d * h * w
+    nbytes = b * r * w * c * esize + 2 * pts * 4 + pts * c * esize
+    return nbytes, pts * (8 * c + (0 if backward else 8))
+
+
+def image_warp_work(b, k, h, w, c, backward=False, l1=False):
+    """Forward: images (B,H,W,C), coordinates -> (B,K,H,W,C) [+ target in,
+    L1 (B,K,H,W) out]. Backward: images, coordinates, gradient [+ target,
+    L1 gradient] -> dsx, dsy."""
+    pts = b * k * h * w
+    img = b * h * w * c * 4
+    if backward:
+        nbytes = img + 2 * pts * 4 + pts * c * 4 + 2 * pts * 4
+        flops = pts * (14 * c + 4)
+        if l1:
+            nbytes += img + pts * 4
+            flops += pts * (12 * c + 1)
+    else:
+        nbytes = img + 2 * pts * 4 + pts * c * 4
+        flops = pts * (8 * c + 8)
+        if l1:
+            nbytes += img + pts * 4
+            flops += pts * (3 * c + 1)
+    return nbytes, flops
+
+
+def _norm_grid(sx, sy, h, w):
+    """Pixel coordinates (B, D, H', W') -> F.grid_sample's normalized grid
+    (B, D*H', W', 2), align_corners=True, the D maps folded into rows."""
+    import torch
+    b, d, ho, wo = sx.shape
+    grid = torch.stack([sx / (w - 1) * 2.0 - 1.0, sy / (h - 1) * 2.0 - 1.0],
+                       dim=-1)
+    return grid.reshape(b, d * ho, wo, 2)
 
 
 def log(*a):
@@ -54,21 +140,10 @@ def log(*a):
 
 
 def cuda_ms(fn, runs=20, warmup=3):
-    """Median milliseconds of ``fn`` over ``runs`` timed calls, CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median milliseconds of ``fn`` over ``runs`` timed calls, CUDA
+    events (the port's timer)."""
+    from movedepth_tpu_torch.profile_kernel_variants import cuda_ms as timer
+    return timer(fn, runs, warmup)
 
 
 def phase_device():
@@ -93,12 +168,14 @@ def phase_build():
     """Every kernel source at once (one nvcc each), then the typed
     libraries."""
     from movedepth_tpu_torch import native
+    from movedepth_tpu_torch import profile_kernel_variants as PKV
     from movedepth_tpu_torch.ops import image_warp, sweep_warp
     t0 = time.perf_counter()
     native.build_all(KERNELS)
     sweep_warp.kernel_library()
     sweep_warp.warp_library()
     image_warp.kernel_library()
+    PKV.variant_library()
     log(f"[build] {', '.join(KERNELS)}: nvcc {' '.join(native.NVCC_FLAGS)} "
         f"-> {native.BUILD_DIR}, {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
@@ -228,7 +305,9 @@ def phase_kernel():
             "source": "movedepth_tpu_torch/csrc/sweep_warp_corr.cu",
             "replaces": "movedepth_tpu/ops/pallas/sweep_warp.py:586",
             "launches": None, "max_abs_err": err32, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms,
+            **bound(*sweep_corr_work(b, r, w, c, d, r, g, 2)),
+            "library_ms": None}
 
 
 def _temper_pose_head(models):
@@ -421,9 +500,11 @@ def phase_train_kernels():
     """The train step's four kernels against their plain versions at the
     shipped train shapes (batch 12): the sweep warp in float32 and bfloat16
     and its source gradient (twice: atomics make it run-to-run variable),
-    the border image warp and its coordinate gradient. Returns the kernels'
-    summary records."""
+    the border image warp and its coordinate gradient; each timed against
+    its plain version and its library call. Returns (the kernels' summary
+    records, the image warp's inputs)."""
     import torch
+    import torch.nn.functional as F
     from movedepth_tpu_torch.ops import image_warp as IW
     from movedepth_tpu_torch.ops import sweep_warp as SW
     from movedepth_tpu_torch.ops.costvolume import (schedule_depth_bins_z,
@@ -479,9 +560,20 @@ def phase_train_kernels():
     leaf16 = src16.clone().requires_grad_()
     ms_bwd = _grad_ms(SW.sweep_warp(leaf16, sx, sy), leaf16, g16)
     plain_bwd = _grad_ms(SW.sweep_warp_reference(leaf16, sx, sy), leaf16, g16)
+    # the library call: one F.grid_sample (zeros padding, the D maps folded
+    # into the grid's rows) on the NCHW source, and its input gradient
+    src_nchw = src16.permute(0, 3, 1, 2).contiguous()
+    grid16 = _norm_grid(sx, sy, r, w).bfloat16()
+    sample = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
+    lib_fwd = cuda_ms(lambda: F.grid_sample(src_nchw, grid16, **sample))
+    leaf_nchw = src_nchw.clone().requires_grad_()
+    lib_bwd = _grad_ms(F.grid_sample(leaf_nchw, grid16, **sample), leaf_nchw,
+                       g16.permute(0, 4, 1, 2, 3).reshape(b, c, d * r, w)
+                       .contiguous())
     log(f"[train-kernel] sweep_warp bfloat16 at {s}: forward kernel "
-        f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms; backward kernel "
-        f"{ms_bwd:.4f} ms, plain {plain_bwd:.4f} ms")
+        f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms, grid_sample "
+        f"{lib_fwd:.4f} ms; backward kernel {ms_bwd:.4f} ms, plain "
+        f"{plain_bwd:.4f} ms, grid_sample backward {lib_bwd:.4f} ms")
 
     # the full-resolution image warp: a depth map projected into the source
     # frame by K = 6 poses near one KITTI-like motion
@@ -519,30 +611,126 @@ def phase_train_kernels():
     ms_coord = _grad_ms(IW.WarpImagesBorder.apply(img, xc, yc), (xc, yc), gi)
     plain_coord = _grad_ms(IW.warp_images_border_reference(img, x, y), (x, y),
                            gi)
+    # the library call: F.grid_sample in border mode, the K maps folded into
+    # the grid's rows, and its grid gradient
+    img_nchw = img.permute(0, 3, 1, 2).contiguous()
+    grid = _norm_grid(gx, gy, hh, xx)
+    border = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    lib_img = cuda_ms(lambda: F.grid_sample(img_nchw, grid, **border))
+    grid_leaf = grid.clone().requires_grad_()
+    lib_coord = _grad_ms(F.grid_sample(img_nchw, grid_leaf, **border),
+                         grid_leaf, gi.permute(0, 4, 1, 2, 3)
+                         .reshape(b, 3, k * hh, xx).contiguous())
     log(f"[train-kernel] warp_images_border float32 at B={b}, K={k}, "
         f"{hh}x{xx}: forward kernel {ms_img:.4f} ms, plain {plain_img:.4f} "
-        f"ms; coordinate backward kernel {ms_coord:.4f} ms, plain "
-        f"{plain_coord:.4f} ms")
+        f"ms, grid_sample {lib_img:.4f} ms; coordinate backward kernel "
+        f"{ms_coord:.4f} ms, plain {plain_coord:.4f} ms, grid_sample "
+        f"backward {lib_coord:.4f} ms")
 
-    def record(name, source, replaces, err, ms, plain_ms):
-        return {"name": name, "route": "cuda",
-                "source": f"movedepth_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": None, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms}
+    records = [
+        _record("sweep_warp", "sweep_warp.cu",
+                "movedepth_tpu/ops/pallas/sweep_warp.py:662", err_fwd, ms_fwd,
+                plain_fwd, sweep_warp_work(b, r, w, c, d, r, 2), lib_fwd),
+        _record("sweep_warp_bwd", "sweep_warp.cu",
+                "movedepth_tpu/ops/pallas/sweep_warp.py:618", err_bwd, ms_bwd,
+                plain_bwd, sweep_warp_work(b, r, w, c, d, r, 2, True),
+                lib_bwd),
+        _record("warp_images_border", "image_warp.cu",
+                "movedepth_tpu/ops/pallas/image_warp.py:576", err_img, ms_img,
+                plain_img, image_warp_work(b, k, hh, xx, 3), lib_img),
+        _record("warp_images_border_coord_bwd", "image_warp.cu",
+                "movedepth_tpu/ops/pallas/image_warp.py:443", err_coord,
+                ms_coord, plain_coord,
+                image_warp_work(b, k, hh, xx, 3, backward=True), lib_coord),
+    ]
+    return records, (img, gx, gy)
 
+
+def _record(name, source, replaces, err, ms, plain_ms, work, library_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"movedepth_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bound(*work),
+            "library_ms": library_ms}
+
+
+def phase_l1_kernel(img, gx, gy):
+    """Kernel 4b, the border warp with the photometric L1 epilogue, against
+    its plain version at phase 7's train shape and coordinates (exact
+    bounds, out of frame). Rows 100-103 of every map sit on the pixel grid
+    and the target equals the image there, so |warped - target| is exactly
+    0 (sign 0 in the cotangent); elsewhere the target is the image offset
+    by 0.01-0.1 of either sign. Checks the warped stack, the L1 map, and
+    dsx, dsy with both cotangents nonzero, in float32 within 1e-5 of each
+    output's range. Times the kernels against the plain version and the
+    forward against the two-step path (the row-4 kernel, then the L1 in
+    torch). Returns the two kernels' records."""
+    import torch
+    from movedepth_tpu_torch.ops import image_warp as IW
+
+    b, hh, xx, c = img.shape
+    k = gx.shape[1]
+    dev = img.device
+    gen = torch.Generator().manual_seed(4)
+    rows = slice(100, 104)
+    gx, gy = gx.clone(), gy.clone()
+    gx[:, :, rows] = torch.arange(xx, dtype=torch.float32, device=dev)
+    gy[:, :, rows] = torch.arange(100, 104, dtype=torch.float32,
+                                  device=dev)[:, None]
+    sign = torch.where(torch.rand(img.shape, generator=gen) < 0.5, -1.0, 1.0)
+    off = (torch.rand(img.shape, generator=gen) * 0.09 + 0.01) * sign
+    off[:, rows] = 0.0
+    tgt = img + off.to(dev)
+    gi = torch.randn((b, k, hh, xx, c), generator=gen).to(dev)
+    gl = torch.randn((b, k, hh, xx), generator=gen).to(dev)
+
+    x, y = gx.clone().requires_grad_(), gy.clone().requires_grad_()
+    got_w, got_l1 = IW.warp_images_border(img, x, y, target=tgt)
+    xr, yr = gx.clone().requires_grad_(), gy.clone().requires_grad_()
+    want_w, want_l1 = IW.warp_images_border_l1_reference(img, xr, yr, tgt)
+    err_w = _within("warp_images_border_l1 warped", got_w, want_w)
+    err_l1 = _within("warp_images_border_l1 l1", got_l1, want_l1)
+    if got_l1[:, :, rows].abs().max().item() != 0:
+        raise RuntimeError("the L1 of exact samples of the target is not 0")
+    got = torch.autograd.grad((got_w, got_l1), (x, y), (gi, gl))
+    want = torch.autograd.grad((want_w, want_l1), (xr, yr), (gi, gl))
+    err_d = max(_within("warp_images_border_l1 dsx", got[0], want[0]),
+                _within("warp_images_border_l1 dsy", got[1], want[1]))
+    log(f"[l1-kernel] exact ties (|w - t| = 0) in rows 100-103 of all {k} "
+        f"maps: l1 exactly 0; {int((want_l1 == 0).sum())} zero L1 values "
+        "in all")
+
+    xc, yc = (t.detach().requires_grad_()
+              for t in IW.clamp_coords(gx, gy, hh, xx))
+
+    def two_step():
+        out = IW.WarpImagesBorder.apply(img, xc, yc)
+        return out, torch.mean(torch.abs(out - tgt[:, None]), dim=-1)
+
+    ms = cuda_ms(lambda: IW.WarpImagesBorderL1.apply(img, tgt, xc, yc))
+    plain = cuda_ms(lambda: IW.warp_images_border_l1_reference(img, gx, gy,
+                                                               tgt))
+    two = cuda_ms(two_step)
+    ms_bwd = _grad_ms(IW.WarpImagesBorderL1.apply(img, tgt, xc, yc),
+                      (xc, yc), (gi, gl))
+    plain_bwd = _grad_ms(IW.warp_images_border_l1_reference(img, x, y, tgt),
+                         (x, y), (gi, gl))
+    two_bwd = _grad_ms(two_step(), (xc, yc), (gi, gl))
+    log(f"[l1-kernel] warp_images_border_l1 float32 at B={b}, K={k}, "
+        f"{hh}x{xx}: forward kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"two-step (row-4 kernel + torch L1) {two:.4f} ms; backward kernel "
+        f"{ms_bwd:.4f} ms, plain {plain_bwd:.4f} ms, two-step {two_bwd:.4f} "
+        "ms")
     return [
-        record("sweep_warp", "sweep_warp.cu",
-               "movedepth_tpu/ops/pallas/sweep_warp.py:662", err_fwd, ms_fwd,
-               plain_fwd),
-        record("sweep_warp_bwd", "sweep_warp.cu",
-               "movedepth_tpu/ops/pallas/sweep_warp.py:618", err_bwd, ms_bwd,
-               plain_bwd),
-        record("warp_images_border", "image_warp.cu",
-               "movedepth_tpu/ops/pallas/image_warp.py:576", err_img, ms_img,
-               plain_img),
-        record("warp_images_border_coord_bwd", "image_warp.cu",
-               "movedepth_tpu/ops/pallas/image_warp.py:443", err_coord,
-               ms_coord, plain_coord),
+        _record("warp_images_border_l1", "image_warp.cu",
+                "movedepth_tpu/ops/pallas/image_warp.py:499",
+                max(err_w, err_l1), ms, plain,
+                image_warp_work(b, k, hh, xx, c, l1=True), None),
+        _record("warp_images_border_l1_coord_bwd", "image_warp.cu",
+                "movedepth_tpu/ops/pallas/image_warp.py:523", err_d, ms_bwd,
+                plain_bwd,
+                image_warp_work(b, k, hh, xx, c, backward=True, l1=True),
+                None),
     ]
 
 
@@ -570,12 +758,8 @@ def _grad_rel(models, ref_models):
 
 
 def _launch_counts():
-    from movedepth_tpu_torch.ops import image_warp as IW
-    from movedepth_tpu_torch.ops import sweep_warp as SW
-    return {"sweep_warp": SW.warp_launches,
-            "sweep_warp_bwd": SW.warp_bwd_launches,
-            "warp_images_border": IW.launches,
-            "warp_images_border_coord_bwd": IW.bwd_launches}
+    from movedepth_tpu_torch.cli.train import kernel_launches
+    return kernel_launches()
 
 
 def _zero_launch_counts():
@@ -583,6 +767,45 @@ def _zero_launch_counts():
     from movedepth_tpu_torch.ops import sweep_warp as SW
     SW.warp_launches = SW.warp_bwd_launches = 0
     IW.launches = IW.bwd_launches = 0
+    IW.l1_launches = IW.l1_bwd_launches = 0
+
+
+def _f32_step(cfg, step_models, step_batch, step_draws):
+    """One float32 train_step from fresh optimizer state; (losses, s)."""
+    from movedepth_tpu_torch.train import state as S
+    opt, sched = S.create_optimizer(step_models, cfg)
+    t0 = time.perf_counter()
+    out, _ = S.train_step(step_models, opt, sched, step_batch, cfg, False,
+                          step_draws)
+    return out, time.perf_counter() - t0
+
+
+def _card_vs_cpu(tag, got, want, models, cpu_models, spreads, threads):
+    """The gates of a float32 card step against the same step on the CPU:
+    every loss within 1e-3 relative; every model's gradient within 5e-3 or
+    twice the spread the CPU's own gradient shows between 1 thread and all
+    of them, whichever is larger (a float32 gradient of this step is fixed
+    only up to the order of its sums)."""
+    failed = []
+    for key, value in want.items():
+        rel = abs(got[key].item() - value.item()) / abs(value.item())
+        log(f"[{tag}] float32 card vs CPU {key}: card {got[key].item():.6f}, "
+            f"CPU {value.item():.6f}, rel {rel:.3e}")
+        if not rel <= 1e-3:
+            failed.append(f"{key} rel {rel:.3e} > 1e-3")
+    for name, gap in _grad_rel(models, cpu_models).items():
+        bound_ = max(5e-3, 2.0 * spreads[name])
+        log(f"[{tag}] float32 gradient of {name}: card vs CPU relative L2 "
+            f"{gap:.3e}; CPU 1 thread vs {threads} {spreads[name]:.3e}; "
+            f"bound {bound_:.3e}")
+        if not gap <= bound_:
+            failed.append(f"{name} gradient {gap:.3e} > {bound_:.3e}")
+    if failed:
+        raise RuntimeError(f"{tag} card vs CPU gates failed: "
+                           + "; ".join(failed))
+    log(f"[{tag}] float32 gates pass: every loss within 1e-3 relative, "
+        "every gradient within max(5e-3, 2 x the CPU's own thread-count "
+        "spread)")
 
 
 def phase_train_path():
@@ -590,7 +813,7 @@ def phase_train_path():
     "float32") models (ResNet18, 640x192, 16 bins, convex upsampling) at
     batch 2 on the card against the same step on the CPU, then one step in
     the shipped bfloat16 config. Returns (the launches of the card's float32
-    step, the CPU models)."""
+    step, the CPU models after their step, what phase 8b reuses)."""
     import torch
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
@@ -600,24 +823,18 @@ def phase_train_path():
     cfg32 = Config(compute_dtype="float32")
     cpu_models = build_models(cfg32, "cpu", torch.Generator().manual_seed(0))
     _boost_pose_head(cpu_models)
+    init = {k: copy.deepcopy(m) for k, m in cpu_models.items()}
     models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
     bf16_models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
     one_thread = {k: copy.deepcopy(m) for k, m in cpu_models.items()}
     batch = P.synthetic_batch(cfg32, 2, seed=0)
     draws = P.sample_draws(cfg32, 2, torch.Generator().manual_seed(0))
 
-    def step(step_models, step_batch, step_draws):
-        opt, sched = S.create_optimizer(step_models, cfg32)
-        t0 = time.perf_counter()
-        out = S.train_step(step_models, opt, sched, step_batch, cfg32, False,
-                           step_draws)
-        return out, time.perf_counter() - t0
-
-    want, seconds = step(cpu_models, batch, draws)
+    want, seconds = _f32_step(cfg32, cpu_models, batch, draws)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        _, seconds1 = step(one_thread, batch, draws)
+        _, seconds1 = _f32_step(cfg32, one_thread, batch, draws)
     finally:
         torch.set_num_threads(threads)
     log(f"[train] CPU float32 train_step at batch 2, 640x192: {seconds:.1f} s "
@@ -627,43 +844,20 @@ def phase_train_path():
     gpu_draws = {"box": draws["box"],
                  "noise": [n.cuda() for n in draws["noise"]]}
     _zero_launch_counts()
-    got, _ = step(models, gpu_batch, gpu_draws)
+    got, _ = _f32_step(cfg32, models, gpu_batch, gpu_draws)
     torch.cuda.synchronize()
     launches = _launch_counts()
     log(f"[train] kernel launches of one card train_step: {launches}")
-    if list(launches.values()) != [1, 1, 2, 2]:
+    if list(launches.values()) != [1, 1, 2, 2, 0, 0]:
         raise RuntimeError("expected sweep_warp 1 forward + 1 backward and "
                            "warp_images_border 2 forward + 2 backward")
-    failed = []
-    for key, value in want.items():
-        rel = abs(got[key].item() - value.item()) / abs(value.item())
-        log(f"[train] float32 card vs CPU {key}: card {got[key].item():.6f}, "
-            f"CPU {value.item():.6f}, rel {rel:.3e}")
-        if not rel <= 1e-3:
-            failed.append(f"{key} rel {rel:.3e} > 1e-3")
-    # A float32 gradient of this step is fixed only up to the spread that
-    # reordering its sums gives: the CPU on 1 thread against the CPU on all
-    # of them. The card must agree with the CPU within 5e-3 or twice that
-    # spread, whichever is larger.
-    gaps = _grad_rel(models, cpu_models)
     spreads = _grad_rel(one_thread, cpu_models)
-    for name, gap in gaps.items():
-        bound = max(5e-3, 2.0 * spreads[name])
-        log(f"[train] float32 gradient of {name}: card vs CPU relative L2 "
-            f"{gap:.3e}; CPU 1 thread vs {threads} {spreads[name]:.3e}; "
-            f"bound {bound:.3e}")
-        if not gap <= bound:
-            failed.append(f"{name} gradient {gap:.3e} > {bound:.3e}")
-    if failed:
-        raise RuntimeError("train card vs CPU gates failed: "
-                           + "; ".join(failed))
-    log("[train] float32 gates pass: every loss within 1e-3 relative, every "
-        "gradient within max(5e-3, 2 x the CPU's own thread-count spread)")
+    _card_vs_cpu("train", got, want, models, cpu_models, spreads, threads)
 
     cfg16 = Config()  # bfloat16 autocast, the shipped config
     opt, sched = S.create_optimizer(bf16_models, cfg16)
-    got16 = S.train_step(bf16_models, opt, sched, gpu_batch, cfg16, True,
-                         gpu_draws)
+    got16, _ = S.train_step(bf16_models, opt, sched, gpu_batch, cfg16, True,
+                            gpu_draws)
     torch.cuda.synchronize()
     bad = [k for k, v in got16.items() if not torch.isfinite(v).all()]
     bad += [n for n, m in bf16_models.items()
@@ -675,13 +869,50 @@ def phase_train_path():
         f"{got16['loss'].item():.6f} (float32 on the card "
         f"{got['loss'].item():.6f}); every loss, gradient and updated "
         "parameter finite")
-    return launches, cpu_models
+    return launches, cpu_models, (init, batch, draws, spreads, threads, got)
+
+
+def phase_train_path_l1(init, batch, draws, spreads, threads, got_off):
+    """Phase 8 with kernel_l1 on: the float32 card step (through the L1
+    epilogue kernel) against the same step on the CPU (through its plain
+    version) under phase 8's gates, its kernel launches, and its losses
+    against phase 8's card step with kernel_l1 off (same weights, batch and
+    draws) within 1e-5 relative."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+
+    cfg = Config(compute_dtype="float32", kernel_l1=True)
+    cpu_models = {k: copy.deepcopy(m) for k, m in init.items()}
+    models = {k: copy.deepcopy(m).cuda() for k, m in init.items()}
+    want, seconds = _f32_step(cfg, cpu_models, batch, draws)
+    log(f"[train-l1] CPU float32 train_step with kernel_l1: {seconds:.1f} s")
+    gpu_draws = {"box": draws["box"],
+                 "noise": [n.cuda() for n in draws["noise"]]}
+    _zero_launch_counts()
+    got, _ = _f32_step(cfg, models, P.as_batch(batch, "cuda"), gpu_draws)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    log(f"[train-l1] kernel launches of one card train_step with kernel_l1: "
+        f"{launches}")
+    if list(launches.values()) != [1, 1, 0, 0, 2, 2]:
+        raise RuntimeError("expected sweep_warp 1 + 1, warp_images_border "
+                           "0 + 0 and warp_images_border_l1 2 forward + 2 "
+                           "backward")
+    _card_vs_cpu("train-l1", got, want, models, cpu_models, spreads, threads)
+    worst = max(abs(got[k].item() - got_off[k].item()) / abs(got_off[k].item())
+                for k in got_off)
+    log(f"[train-l1] kernel_l1 on vs off on the card: every loss within "
+        f"{worst:.3e} relative (must be <= 1e-5)")
+    if not worst <= 1e-5:
+        raise RuntimeError("kernel_l1 on and off give different losses")
 
 
 def phase_train_throughput(cpu_models, card):
     """train_step in bfloat16 autocast at batch 12, 640x192 (the shipped
     config): 3 warmup steps, then the median of 10, CUDA events; then the
-    same with the plain versions swapped in for the two kernel Functions."""
+    same with the plain versions swapped in for the two kernel Functions,
+    then with kernel_l1 on (phase 9b). Returns the kernel_l1 ms/step."""
     import torch
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
@@ -695,28 +926,203 @@ def phase_train_throughput(cpu_models, card):
     draws = P.sample_draws(cfg, bsz, torch.Generator("cuda").manual_seed(1),
                            device="cuda")
 
-    def run(label):
+    def run(label, step_cfg):
         models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
-        opt, sched = S.create_optimizer(models, cfg)
+        opt, sched = S.create_optimizer(models, step_cfg)
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: S.train_step(models, opt, sched, batch, cfg,
-                                          True, draws), runs=10, warmup=3)
+        ms = cuda_ms(lambda: S.train_step(models, opt, sched, batch,
+                                          step_cfg, True, draws),
+                     runs=10, warmup=3)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"[train-throughput] {label}: train_step bfloat16 batch {bsz}, "
             f"640x192: {ms:.3f} ms/step (median of 10), "
             f"{bsz / ms * 1e3:.2f} examples/s, peak {peak:.2f} GiB; {card}")
         return ms
 
-    ms = run("kernels")
+    def plain_warp(src, sx, sy, target=None):
+        assert target is None  # kernel_l1 is off in this run
+        return IW.warp_images_border_reference(src, sx, sy)
+
+    ms = run("kernels", cfg)
     kernels = (P.sweep_warp, P.warp_images_border)
     P.sweep_warp = SW.sweep_warp_reference
-    P.warp_images_border = IW.warp_images_border_reference
+    P.warp_images_border = plain_warp
     try:
-        plain = run("plain versions")
+        plain = run("plain versions", cfg)
     finally:
         P.sweep_warp, P.warp_images_border = kernels
+    l1 = run("kernels, kernel_l1", cfg.replace(kernel_l1=True))
     log(f"[train-throughput] kernels {ms:.3f} ms/step vs plain versions "
-        f"{plain:.3f} ms/step")
+        f"{plain:.3f} ms/step; with kernel_l1 {l1:.3f} ms/step")
+    return l1
+
+
+def _write_kitti_tree(root, frames=30):
+    """A KITTI-raw layout of ``frames`` synthetic 1242x375 JPEGs: one
+    smooth random texture panned 8 pixels a frame (a camera moving
+    sideways), 26 train lines (frames 1-26) and 2 val lines (27, 28)."""
+    import numpy as np
+    from PIL import Image
+    drive = "2011_09_26/2011_09_26_drive_0001_sync"
+    img_dir = os.path.join(root, drive, "image_02", "data")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(0)
+    small = rng.uniform(0, 255, (24, 100, 3)).astype(np.uint8)
+    pan = Image.fromarray(small).resize((1242 + 8 * frames, 375),
+                                        Image.BICUBIC)
+    for i in range(frames):
+        pan.crop((8 * i, 0, 8 * i + 1242, 375)).save(
+            os.path.join(img_dir, f"{i:010d}.jpg"), quality=90)
+    splits = os.path.join(root, "splits", "smoke")
+    os.makedirs(splits)
+    with open(os.path.join(splits, "train_files.txt"), "w") as f:
+        f.write("\n".join(f"{drive} {i} l" for i in range(1, 27)))
+    with open(os.path.join(splits, "val_files.txt"), "w") as f:
+        f.write("\n".join(f"{drive} {i} l" for i in (27, 28)))
+    return os.path.join(root, "splits")
+
+
+def _train_cli(args, timeout):
+    """Run ``python -m movedepth_tpu_torch.cli.train`` with ``args`` from
+    the checkout; returns (its output lines, its epoch ms/step by epoch,
+    its kernel launches)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "movedepth_tpu_torch.cli.train", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(f"[cli]   {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"the train CLI exited {proc.returncode}:\n"
+                           + proc.stderr[-4000:])
+    log(f"[cli] exit 0 after {time.perf_counter() - t0:.1f} s")
+    epochs = {int(m.group(1)): (int(m.group(2)), float(m.group(3)))
+              for m in (re.match(r"epoch (\d+): (\d+) steps, ([\d.]+) "
+                                 r"ms/step", ln) for ln in lines) if m}
+    losses = [float(m.group(1)) for m in
+              (re.search(r"\| loss: (\S+) \|", ln) for ln in lines) if m]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"logged losses not finite: {losses}")
+    launches = [json.loads(ln.split(": ", 1)[1]) for ln in lines
+                if ln.startswith("kernel launches: ")]
+    if len(launches) != 1:
+        raise RuntimeError("the train CLI printed no kernel launches")
+    return lines, epochs, launches[0]
+
+
+def _check_folders(models_dir, names, want_models):
+    import torch
+    for name in names:
+        files = set(os.listdir(os.path.join(models_dir, name)))
+        want = {f"{m}.pth" for m in want_models} | {"adam.pth"}
+        if files != want:
+            raise RuntimeError(f"{name}: {sorted(files)} != {sorted(want)}")
+    return torch.load(os.path.join(models_dir, "last", "adam.pth"),
+                      map_location="cpu", weights_only=True)["step"]
+
+
+def phase_train_cli(l1_ms, card):
+    """This slice's path: the train CLI as a user runs it, at the shipped
+    width (640x192, batch 12, bfloat16) with --kernel_l1, 2 epochs of 2
+    steps with validation at every step and checkpoints, then a resume from
+    ``last`` for a third epoch. Returns the first run's kernel launches."""
+    from movedepth_tpu_torch.config import ALL_MODELS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "kitti")
+        splits = _write_kitti_tree(data)
+        log_dir = os.path.join(tmp, "log")
+        common = ["--data_path", data, "--log_dir", log_dir, "--model_name",
+                  "smoke", "--split", "smoke", "--splits_dir", splits,
+                  "--kernel_l1", "--weights_init", "scratch",
+                  "--log_frequency", "1", "--num_workers", "8"]
+        _, epochs, launches = _train_cli(common + ["--num_epochs", "2"], 480)
+        models_dir = os.path.join(log_dir, "smoke", "models")
+        if {e: n for e, (n, _) in epochs.items()} != {0: 2, 1: 2}:
+            raise RuntimeError(f"expected 2 epochs of 2 steps: {epochs}")
+        if not os.path.isfile(os.path.join(models_dir, "opt.json")):
+            raise RuntimeError("no opt.json")
+        step = _check_folders(models_dir, ("weights_0", "weights_1", "last"),
+                              ALL_MODELS)
+        want = {"sweep_warp": 8, "sweep_warp_bwd": 4,
+                "warp_images_border": 0, "warp_images_border_coord_bwd": 0,
+                "warp_images_border_l1": 16,
+                "warp_images_border_l1_coord_bwd": 8}
+        log(f"[cli] 2 epochs: step {step}; kernel launches {launches} "
+            "(4 train steps and 4 validations)")
+        if step != 4 or launches != want:
+            raise RuntimeError(f"expected step 4 and launches {want}")
+
+        last = os.path.join(models_dir, "last")
+        _, epochs2, launches2 = _train_cli(
+            common + ["--num_epochs", "3", "--load_weights_folder", last],
+            360)
+        step2 = _check_folders(models_dir, ("weights_2", "last"),
+                               ALL_MODELS)
+        log(f"[cli] resume from last: step {step} -> {step2}, epochs "
+            f"{sorted(epochs2)}; kernel launches {launches2}")
+        if step2 != 6 or sorted(epochs2) != [2] or epochs2[2][0] != 2:
+            raise RuntimeError("the resume did not train epoch 2 from step 4")
+    walls = {e: ms for e, (_, ms) in sorted({**epochs, **epochs2}.items())}
+    log(f"[cli] trainer wall ms/step by epoch {walls} against train_step "
+        f"with kernel_l1 {l1_ms:.3f} ms/step (phase 9b); {card}")
+    return launches
+
+
+def phase_variants():
+    """The stage ablations of the sweep kernel (kernel 6) at the shipped
+    inference shape, batch 128 bfloat16: each variant's ms, the public
+    wrapper against the bare launch; ``full`` must equal the shipped
+    kernel bit for bit and its plain version within one bf16 ulp of the
+    float32 result (plus 1e-5 of the range). Returns its record."""
+    import torch
+    from movedepth_tpu_torch import profile_kernel_variants as PKV
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+
+    inputs = PKV.shipped_inputs(128)
+    PKV.launches = 0
+    times = PKV.time_variants(inputs)
+    ab = PKV.wrapper_ab(inputs)
+    torch.cuda.synchronize()
+    launches = PKV.launches
+    log("[variants] batch 128, bfloat16: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items())
+        + f"; public sweep_warp_corr {ab['wrapper']:.4f} ms vs bare full "
+        f"launch {ab['bare']:.4f} ms; {launches} variant launches")
+    if launches == 0:
+        raise RuntimeError("no kernel variant was launched")
+
+    full = PKV.run_variant("full", *inputs)
+    shipped = SW.sweep_warp_corr(*inputs, 16)
+    torch.cuda.synchronize()
+    if not torch.equal(full, shipped):
+        raise RuntimeError("the full variant differs from sweep_warp_corr")
+    src, ref, sx, sy = inputs
+    want32 = SW.sweep_warp_corr_reference(src.float(), ref.float(), sx, sy, 16)
+    err = (full.float() - want32).abs()
+    excess = (err - _bf16_ulp(want32) - 1e-5 * want32.abs().max()).max()
+    log(f"[variants] full == sweep_warp_corr bit for bit; against the plain "
+        f"version max|diff| {err.max().item():.3e}, excess over one bf16 "
+        f"ulp {excess.item():.3e} (must be <= 0)")
+    if excess.item() > 0:
+        raise RuntimeError("the full variant disagrees with the plain version")
+    err_max = err.max().item()
+    del want32, err
+    plain_ms = cuda_ms(lambda: SW.sweep_warp_corr_reference(src, ref, sx, sy,
+                                                            16),
+                       runs=5, warmup=1)
+    s = PKV.SHIPPED
+    return {"name": "sweep_warp_corr_variants", "route": "cuda",
+            "source": "movedepth_tpu_torch/csrc/sweep_warp_corr_variants.cu",
+            "replaces": "scripts/profile_kernel_variants.py:81",
+            "launches": launches, "max_abs_err": err_max,
+            "ms": times["full"], "plain_ms": plain_ms,
+            **bound(*sweep_corr_work(128, s["R"], s["W"], s["C"], s["D"],
+                                     s["R"], s["G"], 2)),
+            "library_ms": None}
 
 
 def main():
@@ -726,14 +1132,22 @@ def main():
     cpu_models = phase_main_path()
     kernel["launches"] = phase_serve(cpu_models)
     phase_throughput(cpu_models, card)
-    train_kernels = phase_train_kernels()
-    launches, train_models = phase_train_path()
+    train_kernels, image_inputs = phase_train_kernels()
+    l1_kernels = phase_l1_kernel(*image_inputs)
+    del image_inputs
+    launches, train_models, phase8 = phase_train_path()
     for rec in train_kernels:
         rec["launches"] = launches[rec["name"]]
-    phase_train_throughput(train_models, card)
+    phase_train_path_l1(*phase8)
+    l1_ms = phase_train_throughput(train_models, card)
+    cli_launches = phase_train_cli(l1_ms, card)
+    for rec in l1_kernels:
+        rec["launches"] = cli_launches[rec["name"]]
+    variants = phase_variants()
     import torch
     log(card)
-    log(json.dumps({"kernels": [kernel] + train_kernels}))
+    log(json.dumps({"kernels": [kernel] + train_kernels + l1_kernels
+                    + [variants]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

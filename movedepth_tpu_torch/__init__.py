@@ -6,10 +6,11 @@ that keep the reference's ``state_dict`` key names, so a reference folder
 of per-model ``.pth`` files loads unconverted. The public pipeline
 functions keep the JAX package's NHWC batch layout and output keys.
 
-The configuration dataclass is shared with the JAX package: its module
-imports no JAX.
+The port imports nothing of the JAX package: ``config.py``,
+``cli/options.py`` and the ``data/`` modules are its own copies, and an
+``opt.json`` written by either package loads in the other.
 """
 
-from movedepth_tpu.config import Config
+from movedepth_tpu_torch.config import Config
 
 __all__ = ["Config"]

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 from PIL import Image
 
-from movedepth_tpu.cli.options import add_config_args, config_from_args
-from movedepth_tpu.config import Config
+from movedepth_tpu_torch.cli.options import add_config_args, config_from_args
+from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch import pipeline as P
 from movedepth_tpu_torch.models import build_models
 from movedepth_tpu_torch.weights import load_reference_folder

@@ -27,67 +27,16 @@
 // arithmetic is ~5*C FMAs per point. No wgmma and no TMA: there
 // is no matrix product here, and staging tiles through shared memory with
 // TMA is left for a later optimisation, as is computing sx/sy in-kernel from
-// the depth bins (which would remove the coordinate reads).
+// the depth bins (which would remove the coordinate reads). The kernel
+// itself is in sweep_warp_corr.cuh, shared with the stage ablations of
+// sweep_warp_corr_variants.cu.
 
-#include "bilinear.cuh"
+#include "sweep_warp_corr.cuh"
 
 namespace {
 
-template <typename T, int C>
-__device__ __forceinline__ void add_tap(const T* __restrict__ p, float w,
-                                        float (&acc)[C]) {
-  float v[C];
-  mdt::load_row<T, C>(p, v);
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = fmaf(w, v[c], acc[c]);
-}
-
-constexpr int kThreads = 128;
-
-// src (B,R,W,C), ref (B,H,W,C), sx/sy (B,D,H,W) f32 -> out (B,D,H,W,G).
-template <typename T, int C, int G>
-__global__ void __launch_bounds__(kThreads)
-    sweep_warp_corr_kernel(const T* __restrict__ src,
-                           const T* __restrict__ ref,
-                           const float* __restrict__ sx,
-                           const float* __restrict__ sy, T* __restrict__ out,
-                           int B, int R, int W, int D, int H) {
-  static_assert(C % G == 0, "groups must divide channels");
-  const long long n = static_cast<long long>(B) * H * W;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = static_cast<int>(i % W);
-  const long long bh = i / W;  // b * H + h
-  const int h = static_cast<int>(bh % H);
-  const int b = static_cast<int>(bh / H);
-
-  float r[C];
-  mdt::load_row<T, C>(ref + i * C, r);
-  const T* __restrict__ s = src + static_cast<long long>(b) * R * W * C;
-  constexpr float kInvK = static_cast<float>(G) / static_cast<float>(C);
-
-  for (int d = 0; d < D; ++d) {
-    const long long p = ((static_cast<long long>(b) * D + d) * H + h) * W + x;
-    const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
-    float acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (t.valid[k]) add_tap<T, C>(s + mdt::tap_offset(t, k, W) * C, t.w[k], acc);
-
-    // correlate, then the group mean over k under the (k*G + g) order
-    float o[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) o[g] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) o[c % G] = fmaf(acc[c], r[c], o[c % G]);
-#pragma unroll
-    for (int g = 0; g < G; ++g) o[g] *= kInvK;
-    mdt::store_row<T, G>(out + p * G, o);
-  }
-}
+using mdt_swc::kThreads;
+using mdt_swc::sweep_warp_corr_kernel;
 
 // The (C, G) pairs compiled in: the FPN's matching widths at prior scales
 // 0-3 (8, 16, 32, 64 channels) against the usual group counts.

@@ -8,7 +8,7 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from movedepth_tpu.config import Config
+from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch.models.depth_decoder import DepthDecoder, UncertNet
 from movedepth_tpu_torch.models.fpn import FPN4, ConvexUpsampleHead, Reg3D
 from movedepth_tpu_torch.models.pose_decoder import PoseDecoder

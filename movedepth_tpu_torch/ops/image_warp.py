@@ -1,13 +1,16 @@
 """Full-resolution photometric image warp, border mode, differentiable with
-respect to the coordinates.
+respect to the coordinates, with an optional photometric L1 epilogue.
 
-Port of the TPU kernel ``movedepth_tpu/ops/pallas/image_warp.py::
-warp_images_border`` and its coordinate VJP (``_coord_bwd_cw_call``). On
-CUDA tensors :func:`warp_images_border` clamps the coordinates and runs the
+Port of the TPU kernels ``movedepth_tpu/ops/pallas/image_warp.py::
+warp_images_border``, its coordinate VJP (``_coord_bwd_cw_call``) and its
+L1 epilogue (``_warp_cw_l1_cdiff``, reached with ``target=``). On CUDA
+tensors :func:`warp_images_border` clamps the coordinates and runs the
 forward and backward kernels of ``csrc/image_warp.cu`` through
-:class:`WarpImagesBorder`; on CPU tensors it runs the plain PyTorch version
-:func:`warp_images_border_reference`, which is also the kernels' oracle on
-the card.
+:class:`WarpImagesBorder`, or with a target :class:`WarpImagesBorderL1`; on
+CPU tensors it runs the plain PyTorch versions
+:func:`warp_images_border_reference` and
+:func:`warp_images_border_l1_reference`, which are also the kernels'
+oracles on the card.
 
 Border padding is a clamp of the coordinates into [0, W-1] x [0, R-1]
 before sampling. The clamp is ``torch.minimum(torch.maximum(x, lo), hi)``,
@@ -34,9 +37,13 @@ from movedepth_tpu_torch import native
 # Kernel launches in this process; only the CUDA path counts.
 launches = 0  # forward
 bwd_launches = 0  # coordinate backward
+l1_launches = 0  # forward with the L1 epilogue
+l1_bwd_launches = 0  # coordinate backward with the L1 cotangent
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+def _argtypes(pointers):
+    return [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
 
 
 def clamp_coords(sx, sy, height, width):
@@ -73,13 +80,24 @@ def warp_images_border_reference(src, sx, sy):
     return out.view(b, k, h, wo, c)
 
 
+def warp_images_border_l1_reference(src, sx, sy, target):
+    """Plain PyTorch version of :func:`warp_images_border` with a target:
+    the warp of :func:`warp_images_border_reference`, then the L1 tail
+    ``mean_c |warped - target|`` (B, K, R, W) in torch. Autograd gives the
+    coordinates ``sign(w_c - t_c) * g_l1 / C`` from the L1 (sign(0) = 0)."""
+    warped = warp_images_border_reference(src, sx, sy)
+    return warped, torch.mean(torch.abs(warped - target[:, None]), dim=-1)
+
+
 def kernel_library():
     """The image-warp kernels' library (compiled at first call), typed."""
     lib = native.load_library("image_warp")
-    lib.warp_images_border_fwd.argtypes = _FWD_ARGTYPES
-    lib.warp_images_border_fwd.restype = ctypes.c_int
-    lib.warp_images_border_bwd.argtypes = _BWD_ARGTYPES
-    lib.warp_images_border_bwd.restype = ctypes.c_int
+    for fn, pointers in ((lib.warp_images_border_fwd, 4),
+                         (lib.warp_images_border_bwd, 6),
+                         (lib.warp_images_border_l1_fwd, 6),
+                         (lib.warp_images_border_l1_bwd, 8)):
+        fn.argtypes = _argtypes(pointers)
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -131,7 +149,48 @@ class WarpImagesBorder(torch.autograd.Function):
         return None, dsx, dsy
 
 
-def warp_images_border(src, sx, sy):
+class WarpImagesBorderL1(torch.autograd.Function):
+    """The CUDA border-mode warp with the photometric L1 epilogue, at
+    coordinates already clamped into the frame: (warped, l1), l1 =
+    mean_c |warped - target| from the values the forward kernel computed.
+    The backward folds the L1 cotangent into the coordinate gradient in one
+    launch; it recomputes the samples from their taps, so only the inputs
+    are saved (not the (B, K, R, W, C) warped stack). Differentiable with
+    respect to the coordinates only."""
+
+    @staticmethod
+    def forward(ctx, src, target, sx, sy):
+        global l1_launches
+        src, target, sx, sy = (t.contiguous() for t in (src, target, sx, sy))
+        b, r, w, c = src.shape
+        k = sx.shape[1]
+        out = torch.empty((b, k, r, w, c), dtype=torch.float32,
+                          device=src.device)
+        l1 = torch.empty((b, k, r, w), dtype=torch.float32, device=src.device)
+        _launch(kernel_library().warp_images_border_l1_fwd, src, target, sx,
+                sy, out, l1, shape=(b, r, w, k, c))
+        l1_launches += 1
+        ctx.save_for_backward(src, target, sx, sy)
+        return out, l1
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad, grad_l1):
+        global l1_bwd_launches
+        src, target, sx, sy = ctx.saved_tensors
+        if not (ctx.needs_input_grad[2] or ctx.needs_input_grad[3]):
+            return None, None, None, None
+        b, r, w, c = src.shape
+        dsx = torch.empty_like(sx)
+        dsy = torch.empty_like(sy)
+        _launch(kernel_library().warp_images_border_l1_bwd, src, target, sx,
+                sy, grad.float().contiguous(), grad_l1.float().contiguous(),
+                dsx, dsy, shape=(b, r, w, sx.shape[1], c))
+        l1_bwd_launches += 1
+        return None, None, dsx, dsy
+
+
+def warp_images_border(src, sx, sy, target=None):
     """Border-mode bilinear warp of images over K coordinate maps.
 
     src: (B, R, W, C) float32 images; sx, sy: (B, K, R, W) float32 pixel
@@ -140,6 +199,13 @@ def warp_images_border(src, sx, sy):
     same coordinates. Differentiable with respect to sx and sy; src carries
     no gradient on the card. CPU tensors take
     :func:`warp_images_border_reference`.
+
+    ``target`` (B, R, W, C) float32, the frame the warps are compared with,
+    switches on the L1 epilogue: the return becomes ``(warped, l1)`` with
+    l1 (B, K, R, W) float32 = ``mean_c |warped - target|``, computed inside
+    the forward kernel on the card (:class:`WarpImagesBorderL1`) and by
+    :func:`warp_images_border_l1_reference` on the CPU. The target is data:
+    one that requires a gradient raises.
     """
     if src.dim() != 4 or sx.dim() != 4 or sx.shape != sy.shape:
         raise ValueError("expected src (B,R,W,C) and sx, sy (B,K,R,W); got "
@@ -155,9 +221,22 @@ def warp_images_border(src, sx, sy):
     device = src.device
     if sx.device != device or sy.device != device:
         raise ValueError("all inputs must be on one device")
+    if target is not None:
+        if target.shape != src.shape or target.dtype != torch.float32:
+            raise ValueError(f"target {tuple(target.shape)} {target.dtype} "
+                             f"must match images {tuple(src.shape)} float32")
+        if target.device != device:
+            raise ValueError("all inputs must be on one device")
+        if target.requires_grad:
+            raise ValueError("the L1 target is data and gets no gradient; "
+                             "pass target.detach()")
     if device.type == "cpu":
-        return warp_images_border_reference(src, sx, sy)
+        if target is None:
+            return warp_images_border_reference(src, sx, sy)
+        return warp_images_border_l1_reference(src, sx, sy, target)
     if device.type != "cuda":
         raise ValueError(f"no warp_images_border for device {device}")
     x, y = clamp_coords(sx, sy, r, w)
-    return WarpImagesBorder.apply(src.detach(), x, y)
+    if target is None:
+        return WarpImagesBorder.apply(src.detach(), x, y)
+    return WarpImagesBorderL1.apply(src.detach(), target, x, y)

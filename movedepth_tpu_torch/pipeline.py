@@ -24,8 +24,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from movedepth_tpu.config import Config
-from movedepth_tpu.data.synthetic import make_batch
+from movedepth_tpu_torch.config import Config
+from movedepth_tpu_torch.data.synthetic import make_batch
 from movedepth_tpu_torch.ops.costvolume import (
     fuse_frames,
     localmax,
@@ -322,12 +322,15 @@ def mvs_depth_two_pass(models, ref_a, ref_b, src_matches, depth_bins, K_p,
     return out[0][0], out[0][1], out[1][0]
 
 
-def _multi_warp(src, grid):
+def _multi_warp(src, grid, target=None):
     """Warp one source image (B, H, W, 3) by K grids (B, K, H, W, 2) in
-    [-1, 1]: (B, K, H, W, 3), border mode, one kernel launch."""
+    [-1, 1]: (B, K, H, W, 3), border mode, one kernel launch. With
+    ``target`` (B, H, W, 3), (warped, l1 (B, K, H, W)) from the kernel's L1
+    epilogue."""
     h, w = src.shape[1:3]
     sx, sy = grid_to_pixel(grid, h, w)
-    return warp_images_border(src, sx.contiguous(), sy.contiguous())
+    return warp_images_border(src, sx.contiguous(), sy.contiguous(),
+                              target=target)
 
 
 def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
@@ -336,7 +339,10 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
 
     The K = num_scales + 2 depth maps (mono scales, MVS, fused) are
     backprojected and warped together. Pose gradients flow through the
-    mono scales only: the MVS and fused maps use the detached pose.
+    mono scales only: the MVS and fused maps use the detached pose. With
+    ``cfg.kernel_l1`` the L1 map comes from the warp's epilogue (on the
+    card, the image-warp kernel's; on the CPU, its plain version) and SSIM
+    still reads the warped stack; the losses are those of the torch tail.
     ``noise`` holds the automask tiebreaks in use order (``sample_draws``).
     Returns (losses dict, {frame_id: warped scale-0 image}).
     """
@@ -365,10 +371,17 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
         T_det = T_live.detach()
         T_all = torch.stack([T_live] * nsc + [T_det, T_det], dim=1)
         grid = project(pts, K0[:, None], T_all, h, w)  # (B, K, H, W, 2)
-        warped = _multi_warp(color[:, fid_to_idx[f]], grid)
+        src = color[:, fid_to_idx[f]]
+        if cfg.kernel_l1:
+            warped, k_l1 = _multi_warp(src, grid, target=target)
+        else:
+            warped = _multi_warp(src, grid)
         wf = warped.reshape(b * k_all, h, w, 3)
         tf = target[:, None].expand(b, k_all, h, w, 3).reshape(wf.shape)
-        l1 = torch.mean(torch.abs(tf - wf), dim=-1, keepdim=True)
+        if cfg.kernel_l1:
+            l1 = k_l1.reshape(b * k_all, h, w, 1)
+        else:
+            l1 = torch.mean(torch.abs(tf - wf), dim=-1, keepdim=True)
         rp = l1
         if not cfg.no_ssim:
             sm = torch.mean(ssim(wf, tf), dim=-1, keepdim=True)

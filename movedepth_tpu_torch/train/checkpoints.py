@@ -1,0 +1,100 @@
+"""Checkpoints of the port in the reference's layout.
+
+``<log>/models/opt.json`` holds the config; each checkpoint is a folder
+``models/weights_{epoch}``, ``models/weights_{epoch}_{step}`` (a per-step
+snapshot) or ``models/last`` with one ``<model>.pth`` state_dict per model
+(BatchNorm statistics included; the mono encoder's file also carries the
+input ``height`` and ``width``, as the reference's does) and ``adam.pth``:
+the optimizer's and the schedule's state and the step. Such a folder is a
+reference ``.pth`` folder: ``weights.load_reference_folder`` reads it as it
+is. Orbax checkpoints of the JAX package need JAX and do not load here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Mapping, Optional
+
+import torch
+
+from movedepth_tpu_torch.config import Config
+from movedepth_tpu_torch.weights import load_reference_folder
+
+OPTIMIZER_FILE = "adam.pth"
+
+
+def checkpoint_dir(log_path: str, epoch: Optional[int] = None,
+                   step: Optional[int] = None, last: bool = False) -> str:
+    if last:
+        name = "last"
+    elif step is not None:
+        name = f"weights_{epoch}_{step}"
+    else:
+        name = f"weights_{epoch}"
+    return os.path.join(log_path, "models", name)
+
+
+def save_config(log_path: str, cfg: Config) -> str:
+    """``models/opt.json``: the experiment's config."""
+    models_dir = os.path.join(log_path, "models")
+    os.makedirs(models_dir, exist_ok=True)
+    path = os.path.join(models_dir, "opt.json")
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    return path
+
+
+def save_checkpoint(log_path: str, models: Mapping[str, torch.nn.Module],
+                    optimizer, schedule, step: int, cfg: Config,
+                    epoch: Optional[int] = None,
+                    snapshot_step: Optional[int] = None,
+                    last: bool = False) -> str:
+    """Write every model's state_dict and ``adam.pth`` into a checkpoint
+    folder (see the module docstring); returns the folder."""
+    path = checkpoint_dir(log_path, epoch, snapshot_step, last)
+    os.makedirs(path, exist_ok=True)
+    for name, model in models.items():
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        if name == "mono_encoder":
+            state.update(height=cfg.height, width=cfg.width)
+        torch.save(state, os.path.join(path, f"{name}.pth"))
+    torch.save({"optimizer": optimizer.state_dict(),
+                "schedule": schedule.state_dict(), "step": int(step)},
+               os.path.join(path, OPTIMIZER_FILE))
+    return path
+
+
+def check_loadable(folder: str):
+    """Raise unless ``folder`` holds ``.pth`` files."""
+    if not os.path.isdir(folder):
+        raise FileNotFoundError(f"no checkpoint folder {folder}")
+    if not any(f.endswith(".pth") for f in os.listdir(folder)):
+        raise ValueError(
+            f"{folder} holds no .pth files: it is not a reference .pth "
+            "folder. Orbax checkpoints of the JAX package need JAX and do "
+            "not load in the PyTorch port (ROADMAP Queue 1 item 7b).")
+
+
+def load_models(folder: str, models: Mapping[str, torch.nn.Module],
+                names) -> list:
+    """Load ``<folder>/<name>.pth`` into each of ``models`` named in
+    ``names`` (BatchNorm statistics included); returns the names loaded."""
+    check_loadable(folder)
+    return load_reference_folder(folder, {n: models[n] for n in names
+                                          if n in models})
+
+
+def load_optimizer(folder: str, optimizer, device) -> Optional[int]:
+    """Restore the optimizer's state from ``<folder>/adam.pth`` and return
+    the step it was saved at; None when the folder has no such file or
+    the reference's (the optimizer's state_dict alone, with no step: its
+    parameter groups are not the port's), as for a folder of weights
+    alone."""
+    path = os.path.join(folder, OPTIMIZER_FILE)
+    if not os.path.isfile(path):
+        return None
+    saved = torch.load(path, map_location=device, weights_only=True)
+    if "step" not in saved:
+        return None
+    optimizer.load_state_dict(saved["optimizer"])
+    return int(saved["step"])

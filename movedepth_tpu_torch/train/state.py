@@ -12,11 +12,12 @@ counterpart, nor has rematerialization yet.
 
 from __future__ import annotations
 
+import bisect
 from typing import Dict
 
 import torch
 
-from movedepth_tpu.config import Config
+from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch.pipeline import forward_train
 
 # the models updated at learning_rate * lr_fac (the JAX package's MVS_GROUP)
@@ -49,17 +50,39 @@ def create_optimizer(models: Dict[str, torch.nn.Module], cfg: Config,
     return optimizer, schedule
 
 
+def set_schedule_step(optimizer, schedule, step: int):
+    """Put the schedule (and each group's rate) at optimizer step ``step``
+    under its own milestones, as a run that took ``step`` steps has it."""
+    schedule.last_epoch = step
+    milestones = sorted(schedule.milestones.elements())
+    for group, base in zip(optimizer.param_groups, schedule.base_lrs):
+        group["lr"] = base * schedule.gamma ** bisect.bisect_right(milestones,
+                                                                   step)
+    schedule._last_lr = [g["lr"] for g in optimizer.param_groups]
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
 def train_step(models, optimizer, schedule, batch, cfg: Config,
                use_z_bins: bool, draws):
     """One optimizer step: the models in train mode, ``forward_train``,
     ``backward()``, Adam, the schedule. The gradients of this step stay in
-    each parameter's ``.grad`` until the next step. Returns the losses
-    dict, detached."""
+    each parameter's ``.grad`` until the next step. Returns (the losses
+    dict, the outputs dict), detached."""
+    if cfg.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 (the JAX package's multi-step scan) is "
+            "not ported yet (ROADMAP Queue 1 item 13b)")
     for m in models.values():
         m.train()
     optimizer.zero_grad(set_to_none=True)
-    total, losses, _ = forward_train(models, batch, cfg, use_z_bins, draws)
+    total, losses, outputs = forward_train(models, batch, cfg, use_z_bins,
+                                           draws)
     total.backward()
     optimizer.step()
     schedule.step()
-    return {k: v.detach() for k, v in losses.items()}
+    return _detached(losses), _detached(outputs)

@@ -1,5 +1,6 @@
-"""Weights into the port: from the JAX package's flax variables, and from
-reference per-model ``.pth`` folders.
+"""Weights into the port: from the JAX package's flax variables, from
+reference per-model ``.pth`` folders, and ImageNet encoders from a
+torchvision ``.pth``.
 
 :func:`state_dict_from_jax` inverts movedepth_tpu/train/torch_import.py:
 flax kernels (kh, kw, I, O) / (kd, kh, kw, I, O) go back to torch's
@@ -11,6 +12,7 @@ weight/bias and running_mean/running_var.
 
 from __future__ import annotations
 
+import glob
 import os
 from typing import Dict, Mapping
 
@@ -92,6 +94,21 @@ def state_dict_from_jax(name: str, variables: Mapping,
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+def load_state(model: torch.nn.Module, state: Mapping, source: str):
+    """Load a reference state_dict into ``model`` in place: entries that
+    are not weights of the model (``encoder.fc.*``, an encoder's saved
+    ``height``/``width``) are dropped, and every weight and statistic of
+    the model must be there."""
+    own = model.state_dict()
+    missing = [k for k in own if k not in state
+               and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"{source} lacks {len(missing)} weights of the "
+                       f"model, e.g. {missing[:3]}")
+    model.load_state_dict({k: v for k, v in state.items() if k in own},
+                          strict=False)
+
+
 def load_reference_folder(folder: str, models: Mapping) -> list:
     """Load ``<folder>/<name>.pth`` into each of ``models`` in place.
 
@@ -105,14 +122,52 @@ def load_reference_folder(folder: str, models: Mapping) -> list:
         path = os.path.join(folder, f"{name}.pth")
         if not os.path.isfile(path):
             continue
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        own = model.state_dict()
-        state = {k: v for k, v in state.items() if k in own}
-        missing = [k for k in own if k not in state
-                   and not k.endswith("num_batches_tracked")]
-        if missing:
-            raise KeyError(f"{path} lacks {len(missing)} weights of "
-                           f"{name}, e.g. {missing[:3]}")
-        model.load_state_dict(state, strict=False)
+        load_state(model, torch.load(path, map_location="cpu",
+                                     weights_only=True), path)
+        loaded.append(name)
+    return loaded
+
+
+def find_imagenet_weights(num_layers: int, search_dirs=None):
+    """A torchvision ImageNet ``pretrain_resnet/resnet{N}-*.pth``: the first
+    match in ``search_dirs``, then ``$PRETRAIN_RESNET_DIR``, then
+    ``./pretrain_resnet``, then ``pretrain_resnet`` at the root of the
+    checkout. None when there is none."""
+    dirs = list(search_dirs or [])
+    env = os.environ.get("PRETRAIN_RESNET_DIR")
+    if env:
+        dirs.append(env)
+    dirs.append("pretrain_resnet")
+    dirs.append(os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                             "pretrain_resnet"))
+    for d in dirs:
+        hits = sorted(glob.glob(os.path.join(d, f"resnet{num_layers}-*.pth")))
+        if hits:
+            return hits[0]
+    return None
+
+
+def load_imagenet_encoders(cfg, models: Mapping, search_dirs=None) -> list:
+    """ImageNet warm start of the ResNet encoders, in place: a
+    torchvision-layout ``.pth`` (no ``encoder.`` prefix, an ``fc`` head)
+    into ``mono_encoder`` and, unless ``cfg.load_pose``, ``pose_encoder``,
+    whose ``conv1`` takes the kernel tiled over its 2 stacked frames and
+    halved. BatchNorm statistics come along. Returns the names loaded;
+    empty when no file is found (the caller warns and keeps its init)."""
+    path = find_imagenet_weights(cfg.res_arch, search_dirs)
+    if path is None:
+        return []
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = {"encoder." + k: v for k, v in state.items()
+             if not k.startswith("fc.")}
+    loaded = []
+    for name in ("mono_encoder", "pose_encoder"):
+        if name not in models or (name == "pose_encoder" and cfg.load_pose):
+            continue
+        sd = dict(state)
+        if name == "pose_encoder":
+            k = sd["encoder.conv1.weight"]
+            sd["encoder.conv1.weight"] = torch.cat([k, k], dim=1) / 2
+        load_state(models[name], sd, path)
         loaded.append(name)
     return loaded

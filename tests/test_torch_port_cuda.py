@@ -148,6 +148,94 @@ def test_image_warp_kernels_match_plain_version(device):
         assert torch.all((a - b).abs() <= 1e-5 * b.abs().max())
 
 
+def test_image_warp_l1_kernels_match_plain_version(device):
+    """The L1 epilogue: warped stack, L1 map and dsx/dsy with both
+    cotangents nonzero within 1e-5 of their range against the plain
+    version's autograd; exact ties (rows on the pixel grid, the target the
+    image there) give an L1 of exactly 0."""
+    from movedepth_tpu_torch.ops import image_warp as IW
+    src, sx, sy = _image_inputs()
+    h, w = src.shape[1:3]
+    sx[:, :, 10] = torch.arange(w, dtype=torch.float32)
+    sy[:, :, 10] = 10.0
+    g = torch.Generator().manual_seed(5)
+    tgt = torch.rand(src.shape, generator=g)
+    tgt[:, 10] = src[:, 10]
+    gi = torch.randn(sx.shape + (3,), generator=g)
+    gl = torch.randn(sx.shape, generator=g)
+    src, sx, sy, tgt, gi, gl = (t.to(device) for t in
+                                (src, sx, sy, tgt, gi, gl))
+    fwd, bwd = IW.l1_launches, IW.l1_bwd_launches
+    x, y = sx.clone().requires_grad_(), sy.clone().requires_grad_()
+    got, got_l1 = IW.warp_images_border(src, x, y, target=tgt)
+    torch.autograd.backward((got, got_l1), (gi, gl))
+    assert (IW.l1_launches, IW.l1_bwd_launches) == (fwd + 1, bwd + 1)
+    xr, yr = sx.clone().requires_grad_(), sy.clone().requires_grad_()
+    want, want_l1 = IW.warp_images_border_l1_reference(src, xr, yr, tgt)
+    torch.autograd.backward((want, want_l1), (gi, gl))
+    torch.cuda.synchronize()
+    for a, b in ((got, want), (got_l1, want_l1), (x.grad, xr.grad),
+                 (y.grad, yr.grad)):
+        assert torch.all((a - b).abs() <= 1e-5 * b.abs().max())
+    assert torch.count_nonzero(got_l1[:, :, 10]).item() == 0
+
+
+def test_kernel_variants_full_is_the_shipped_kernel(device):
+    """The stage ablations build and run; ``full`` equals sweep_warp_corr
+    bit for bit, and the others differ from it (wrong by design)."""
+    from movedepth_tpu_torch import profile_kernel_variants as PKV
+    inputs = PKV.shipped_inputs(batch=2)
+    shipped = SW.sweep_warp_corr(*inputs, 16)
+    outs = {name: PKV.run_variant(name, *inputs) for name in PKV.VARIANTS}
+    torch.cuda.synchronize()
+    assert torch.equal(outs["full"], shipped)
+    for name, out in outs.items():
+        assert torch.isfinite(out.float()).all(), name
+        assert name == "full" or not torch.equal(out, shipped), name
+
+
+def test_train_step_kernel_l1_card_matches_cpu(device):
+    """kernel_l1 on the card: the L1 epilogue kernel runs (2 forward and 2
+    backward launches, the plain border warp none) and the losses equal
+    the CPU step's within 1e-3 and the card's kernel_l1=False step's
+    within 1e-5."""
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from movedepth_tpu_torch.train import state as S
+    cfg = Config(height=64, width=96, compute_dtype="float32",
+                 kernel_l1=True)
+    models = build_models(cfg)
+    with torch.no_grad():
+        for p in models["pose"].net[3].parameters():
+            p.mul_(40.0)
+    batch = P.synthetic_batch(cfg, 2, seed=11)
+    draws = P.sample_draws(cfg, 2, torch.Generator().manual_seed(5))
+    gpu_batch = {k: v.to(device) for k, v in batch.items()}
+    gpu_draws = {"box": draws["box"],
+                 "noise": [n.to(device) for n in draws["noise"]]}
+
+    def step(step_cfg, step_models, step_batch, step_draws):
+        opt, sched = S.create_optimizer(step_models, step_cfg)
+        return S.train_step(step_models, opt, sched, step_batch, step_cfg,
+                            False, step_draws)[0]
+
+    want = step(cfg, copy.deepcopy(models), batch, draws)
+    counts = (IW.launches, IW.bwd_launches, IW.l1_launches,
+              IW.l1_bwd_launches)
+    got = step(cfg, {k: copy.deepcopy(m).to(device)
+                     for k, m in models.items()}, gpu_batch, gpu_draws)
+    assert (IW.launches - counts[0], IW.bwd_launches - counts[1],
+            IW.l1_launches - counts[2], IW.l1_bwd_launches - counts[3]) \
+        == (0, 0, 2, 2)
+    off = step(cfg.replace(kernel_l1=False),
+               {k: copy.deepcopy(m).to(device) for k, m in models.items()},
+               gpu_batch, gpu_draws)
+    for k in want:
+        np.testing.assert_allclose(got[k].item(), want[k].item(), rtol=1e-3,
+                                   err_msg=k)
+        np.testing.assert_allclose(got[k].item(), off[k].item(), rtol=1e-5,
+                                   err_msg=k)
+
+
 def _grad_rel(models, ref_models):
     """Per model: relative L2 distance of the parameters' .grad."""
     out = {}
@@ -182,7 +270,7 @@ def test_train_step_card_matches_cpu(device):
     def step(step_models, step_batch, step_draws):
         opt, sched = S.create_optimizer(step_models, cfg)
         return S.train_step(step_models, opt, sched, step_batch, cfg, False,
-                            step_draws)
+                            step_draws)[0]
 
     want = step(models, batch, draws)
     threads = torch.get_num_threads()

@@ -132,8 +132,9 @@ def port_side(jax_side):
             models = _port_models(states)
             bn = _BatchStats(models)
             opt, sched = S.create_optimizer(models, CFG)
-            losses = S.train_step(models, opt, sched,
-                                  P.as_batch(batch, "cpu"), CFG, z, _draws())
+            losses, _ = S.train_step(models, opt, sched,
+                                     P.as_batch(batch, "cpu"), CFG, z,
+                                     _draws())
             out[z] = (losses, models, bn.calls)
     finally:
         torch.set_num_threads(threads)
