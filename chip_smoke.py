@@ -11,7 +11,7 @@ without printing the final ok line:
 2. build: compiles every csrc/*.cu with nvcc for sm_90a, all at once.
 3. kernel: sweep_warp_corr against its plain PyTorch version on the card
    at the shipped prior-scale shape, in float32 and bfloat16, plus an
-   out-of-frame case; times both with CUDA events.
+   out-of-frame case; times both.
 4. main path: forward_infer_fused of the shipped Config() models at
    640x192, float32 on the card against the same port on the CPU, and the
    same forward in bfloat16 autocast.
@@ -20,11 +20,18 @@ without printing the final ok line:
 7. train kernels: the sweep warp and the border image warp, forward and
    backward, against their plain versions (and autograd) at the shipped
    train shapes (batch 12), exact-bound and out-of-frame coordinates
-   included; times kernel, plain version and library call.
-7b. the L1 epilogue: the border image warp with a target (warped stack and
-   L1 map, and the coordinate gradient with both cotangents) against its
-   plain version at batch 12, timed against it and against the two-step
-   path (the row-4 warp kernel, then the L1 in torch).
+   included, the border warp's stack bit for bit; times kernel, plain
+   version and library call; counts the CUDA kernels of one
+   photometric_losses forward and backward with the border clamp in the
+   kernels and in torch (torch.profiler, in a child process:
+   ``chip_smoke.py --clamp-launches``).
+7b. the L1 epilogue: the border image warp with a target (warped stack bit
+   for bit, L1 map, and the coordinate gradient with both cotangents)
+   against its plain version at batch 12, timed against it and against the
+   two-step path (the row-4 warp kernel, then the L1 in torch).
+7c. the design steps of the border image-warp kernels (csrc/
+   image_warp_steps.cu, from the previous kernels to the shipped design)
+   on phase 7b's inputs, each checked and timed.
 8. train path: one train_step of the shipped Config(compute_dtype=
    "float32") models at 640x192, batch 2, on the card against the same step
    on the CPU (every loss; every model's gradient, against the spread the
@@ -44,11 +51,17 @@ without printing the final ok line:
 11. the stage ablations of the sweep kernel at batch 128 (``full`` bit for
    bit the shipped kernel), and the public wrapper against the bare launch.
 
-Every kernel's record carries its bound: the least time the card could
-take, the larger of the bytes it must move over 3.35 TB/s and its float32
-operations over 67 TFLOP/s (H100 SXM at 700 W), and the time of one
-PyTorch call computing the same function where there is one
-(``F.grid_sample`` and its backward for rows 2-5).
+Kernel times (``ms``) are device times: many bare launches (the typed C
+function on preallocated outputs, no checks, no allocation) back to back
+between two CUDA events, over the count, median of 5 runs. ``call_ms`` is
+one call of the kernel's wrapper (its Function's backward through
+autograd) between two events, synchronised after each: the gap is the
+host work a caller pays. Every kernel's record carries its bound: the
+least time the card could take, the larger of the bytes it must move over
+3.35 TB/s and its float32 operations over 67 TFLOP/s (H100 SXM at 700 W),
+and the device time of one PyTorch call computing the same function where
+there is one (``F.grid_sample`` for rows 2 and 4,
+``aten.grid_sampler_2d_backward`` for rows 3 and 5).
 
 The lines before the last carry the card's nvidia-smi name and power limit
 and a JSON summary of every kernel; the last line is the JSON ok record.
@@ -69,7 +82,7 @@ KERNEL_SHAPE = dict(B=16, R=48, W=160, C=32, D=16, G=16)
 # (16 bins, 32 FPN channels) and the full-resolution warps of K = 6 maps
 TRAIN_SHAPE = dict(B=12, R=48, W=160, C=32, D=16, H=192, X=640, K=6)
 KERNELS = ("sweep_warp_corr", "sweep_warp", "image_warp",
-           "sweep_warp_corr_variants")
+           "sweep_warp_corr_variants", "image_warp_steps")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM and float32 outside the
 # tensor cores; every kernel here does float32 arithmetic
@@ -140,10 +153,45 @@ def log(*a):
 
 
 def cuda_ms(fn, runs=20, warmup=3):
-    """Median milliseconds of ``fn`` over ``runs`` timed calls, CUDA
-    events (the port's timer)."""
+    """Median milliseconds of one ``fn`` call between two CUDA events,
+    synchronised after each: device time plus the host work before the
+    launch (``call_ms``, and the step times)."""
     from movedepth_tpu_torch.profile_kernel_variants import cuda_ms as timer
     return timer(fn, runs, warmup)
+
+
+def device_ms(fn, launches=50, warmup=5):
+    """The port's kernel timer: ``launches`` calls back to back between two
+    CUDA events over the count, median of 5 such runs."""
+    from movedepth_tpu_torch.profile_kernel_variants import device_ms as dm
+    return dm(fn, launches, warmup)
+
+
+def plain_ms(fn):
+    """:func:`device_ms` of a plain version (milliseconds a call): fewer
+    launches, since each takes a few milliseconds."""
+    return device_ms(fn, launches=10, warmup=2)
+
+
+def _bare(fn, *args):
+    """A bare launch: the typed C function ``fn`` on ``args`` (tensors by
+    pointer, ints as they are) and the current stream, no checks, no
+    allocation and no launch count. Launches once and checks the error
+    code; returns a function that launches again, for the timer."""
+    import torch
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    vals.append(torch.cuda.current_stream().cuda_stream)
+    err = fn(*vals)
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"bare launch failed: CUDA error {err}")
+    return lambda: fn(*vals)
+
+
+def _grad_fn(out, inputs, g):
+    """One backward through ``out``'s graph (the graph is kept)."""
+    import torch
+    return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
 
 
 def phase_device():
@@ -168,6 +216,7 @@ def phase_build():
     """Every kernel source at once (one nvcc each), then the typed
     libraries."""
     from movedepth_tpu_torch import native
+    from movedepth_tpu_torch import profile_image_warp as PIW
     from movedepth_tpu_torch import profile_kernel_variants as PKV
     from movedepth_tpu_torch.ops import image_warp, sweep_warp
     t0 = time.perf_counter()
@@ -176,6 +225,7 @@ def phase_build():
     sweep_warp.warp_library()
     image_warp.kernel_library()
     PKV.variant_library()
+    PIW.step_library()
     log(f"[build] {', '.join(KERNELS)}: nvcc {' '.join(native.NVCC_FLAGS)} "
         f"-> {native.BUILD_DIR}, {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
@@ -183,12 +233,14 @@ def phase_build():
         if not report:
             log(f"[build] {name}: already built")
             continue
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", report[1])]
-        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
-                                                report[1]))
+        rows = native.ptxas_report(name)
+        regs = [r[1] for r in rows]
         log(f"[build] {name}: ready after {report[0]:.1f} s; ptxas: "
             f"{len(regs)} kernel instantiations, {min(regs)}-{max(regs)} "
-            f"registers, {spills} bytes spilled")
+            f"registers, {sum(r[3] for r in rows)} bytes spilled")
+    for kernel, regs, stack, spill in native.ptxas_report("image_warp"):
+        log(f"[build] image_warp {kernel}: {regs} registers, {stack} bytes "
+            f"stack, {spill} bytes spilled")
 
 
 def _bf16_ulp(x):
@@ -292,22 +344,25 @@ def phase_kernel():
         raise RuntimeError("out-of-frame taps did not give exact zeros")
     log("[kernel] out-of-frame coordinates: exact zeros in both dtypes")
 
-    ms = cuda_ms(lambda: SW.sweep_warp_corr(src16, ref16, sx, sy, g))
-    plain_ms = cuda_ms(
-        lambda: SW.sweep_warp_corr_reference(src16, ref16, sx, sy, g))
-    ms32 = cuda_ms(lambda: SW.sweep_warp_corr(src, ref, sx, sy, g))
-    plain_ms32 = cuda_ms(
-        lambda: SW.sweep_warp_corr_reference(src, ref, sx, sy, g))
-    log(f"[kernel] median of 20 at {s}: bfloat16 kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms; float32 kernel {ms32:.4f} ms, plain "
-        f"{plain_ms32:.4f} ms")
-    return {"name": "sweep_warp_corr", "route": "cuda",
-            "source": "movedepth_tpu_torch/csrc/sweep_warp_corr.cu",
-            "replaces": "movedepth_tpu/ops/pallas/sweep_warp.py:586",
-            "launches": None, "max_abs_err": err32, "ms": ms,
-            "plain_ms": plain_ms,
-            **bound(*sweep_corr_work(b, r, w, c, d, r, g, 2)),
-            "library_ms": None}
+    lib = SW.kernel_library()
+    times = {}
+    for tag, (fs, fr) in (("bfloat16", (src16, ref16)), ("float32",
+                                                          (src, ref))):
+        out = torch.empty((b, d, r, w, g), dtype=fs.dtype, device=dev)
+        fn = (lib.sweep_warp_corr_bf16 if fs.dtype == torch.bfloat16
+              else lib.sweep_warp_corr_f32)
+        times[tag] = (
+            device_ms(_bare(fn, fs, fr, sx, sy, out, b, r, w, d, r, c, g)),
+            cuda_ms(lambda: SW.sweep_warp_corr(fs, fr, sx, sy, g)),
+            plain_ms(lambda: SW.sweep_warp_corr_reference(fs, fr, sx, sy,
+                                                          g)))
+        log(f"[kernel] {tag} at {s}: bare launch {times[tag][0]:.4f} ms "
+            f"(device), one wrapper call {times[tag][1]:.4f} ms, plain "
+            f"{times[tag][2]:.4f} ms")
+    ms, call, plain = times["bfloat16"]
+    return _record("sweep_warp_corr", "sweep_warp_corr.cu",
+                   "movedepth_tpu/ops/pallas/sweep_warp.py:586", err32, ms,
+                   plain, sweep_corr_work(b, r, w, c, d, r, g, 2), None, call)
 
 
 def _temper_pose_head(models):
@@ -478,6 +533,17 @@ def _within(name, got, want, bf16=False):
     return err.max().item()
 
 
+def _bitwise(name, got, want):
+    """Raise unless got equals want bit for bit; returns max |got - want|
+    (0.0)."""
+    import torch
+    err = _within(name, got, want)
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{name}: not the plain version bit for bit")
+    log(f"[train-kernel] {name}: equal to the plain version bit for bit")
+    return err
+
+
 def _edge_cases(sx, sy, w, h):
     """Coordinates exactly on 0, W-1, R-1 and outside the frame in the
     first row of every map, and one map shifted wholly out of frame."""
@@ -489,14 +555,71 @@ def _edge_cases(sx, sy, w, h):
     sx[:, 1] += 2.0 * w
 
 
-def _grad_ms(out, inputs, g):
-    """CUDA-event median of one backward through ``out``'s graph."""
+def _clamp_launches(card):
+    """CUDA kernels of one photometric_losses forward and backward at the
+    shipped train shape (batch 12, 640x192, kernel_l1 off), by
+    torch.profiler: with the border clamp in the warp kernels (now), and
+    with the clamp done in torch before the launch (as the warp's wrapper
+    did before; the clamp's 4 elementwise passes and their backward)."""
     import torch
-    return cuda_ms(lambda: torch.autograd.grad(out, inputs, g,
-                                               retain_graph=True))
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config()
+    b, h, w = cfg.batch_size, cfg.height, cfg.width
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    batch = P.synthetic_batch(cfg, b, seed=2, device="cuda")
+    disps = {("disp", s): (torch.rand(b, h >> s, w >> s, generator=gen)
+                           * 0.3 + 0.01).to(dev).requires_grad_()
+             for s in cfg.scales}
+    depth = (torch.rand(b, h, w, generator=gen) * 40 + 5).to(dev)
+    depth.requires_grad_()
+    fused = (torch.rand(b, h, w, generator=gen) * 40 + 5).to(dev)
+    cam = {f: _kitti_pose(b, gen, scale=3.0).to(dev).requires_grad_()
+           for f in cfg.frame_ids[1:]}
+    leaves = list(disps.values()) + [depth] + list(cam.values())
+    noise = P.sample_draws(cfg, b, torch.Generator("cuda").manual_seed(2),
+                           device="cuda")["noise"]
+
+    def step():
+        losses, _ = P.photometric_losses(disps, depth, fused, batch, cam,
+                                         cfg, noise)
+        torch.autograd.grad(losses["mono_loss"] + losses["mvs_loss"]
+                            + losses["fuse_reproj_loss"], leaves)
+
+    def kernels():
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    def clamp_first(src, sx, sy, target=None):
+        x, y = IW.clamp_coords(sx, sy, src.shape[1], src.shape[2])
+        return IW.warp_images_border(src, x, y, target=target)
+
+    now = kernels()
+    shipped, P.warp_images_border = P.warp_images_border, clamp_first
+    try:
+        before = kernels()
+    finally:
+        P.warp_images_border = shipped
+    if now == 0:
+        log("[train-kernel] clamp launches saved: not measured (the "
+            f"profiler saw no device kernels); {card}")
+        return
+    log(f"[train-kernel] photometric_losses forward + backward at batch {b}, "
+        f"{w}x{h}: {before} CUDA kernels with the clamp in torch, {now} "
+        f"with it in the warp kernels: {before - now} launches saved per "
+        f"step (torch.profiler); {card}")
 
 
-def phase_train_kernels():
+def phase_train_kernels(card):
     """The train step's four kernels against their plain versions at the
     shipped train shapes (batch 12): the sweep warp in float32 and bfloat16
     and its source gradient (twice: atomics make it run-to-run variable),
@@ -554,26 +677,37 @@ def phase_train_kernels():
             torch.autograd.grad(SW.sweep_warp_reference(leaf32, sx, sy),
                                 leaf32, g16.float())[0], bf16=True)
 
-    # bfloat16, the train path's dtype, for the times
-    ms_fwd = cuda_ms(lambda: SW.sweep_warp(src16, sx, sy))
-    plain_fwd = cuda_ms(lambda: SW.sweep_warp_reference(src16, sx, sy))
+    # bfloat16, the train path's dtype, for the times: each kernel by a
+    # bare launch on preallocated outputs, device_ms; one call of its
+    # wrapper (the backward through autograd), cuda_ms
+    lib = SW.warp_library()
+    out16 = torch.empty((b, d, r, w, c), dtype=torch.bfloat16, device=dev)
+    dsrc = torch.zeros((b, r, w, c), device=dev)
+    ms_fwd = device_ms(_bare(lib.sweep_warp_fwd_bf16, src16, sx, sy, out16,
+                             b, r, w, d, r, c))
+    ms_bwd = device_ms(_bare(lib.sweep_warp_bwd_bf16, g16, sx, sy, dsrc, b,
+                             r, w, d, r, c))
+    call_fwd = cuda_ms(lambda: SW.sweep_warp(src16, sx, sy))
+    plain_fwd = plain_ms(lambda: SW.sweep_warp_reference(src16, sx, sy))
     leaf16 = src16.clone().requires_grad_()
-    ms_bwd = _grad_ms(SW.sweep_warp(leaf16, sx, sy), leaf16, g16)
-    plain_bwd = _grad_ms(SW.sweep_warp_reference(leaf16, sx, sy), leaf16, g16)
+    call_bwd = cuda_ms(_grad_fn(SW.sweep_warp(leaf16, sx, sy), leaf16, g16))
+    plain_bwd = plain_ms(_grad_fn(SW.sweep_warp_reference(leaf16, sx, sy),
+                                  leaf16, g16))
     # the library call: one F.grid_sample (zeros padding, the D maps folded
     # into the grid's rows) on the NCHW source, and its input gradient
+    # straight from aten (no autograd)
     src_nchw = src16.permute(0, 3, 1, 2).contiguous()
     grid16 = _norm_grid(sx, sy, r, w).bfloat16()
     sample = dict(mode="bilinear", padding_mode="zeros", align_corners=True)
-    lib_fwd = cuda_ms(lambda: F.grid_sample(src_nchw, grid16, **sample))
-    leaf_nchw = src_nchw.clone().requires_grad_()
-    lib_bwd = _grad_ms(F.grid_sample(leaf_nchw, grid16, **sample), leaf_nchw,
-                       g16.permute(0, 4, 1, 2, 3).reshape(b, c, d * r, w)
-                       .contiguous())
-    log(f"[train-kernel] sweep_warp bfloat16 at {s}: forward kernel "
-        f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms, grid_sample "
-        f"{lib_fwd:.4f} ms; backward kernel {ms_bwd:.4f} ms, plain "
-        f"{plain_bwd:.4f} ms, grid_sample backward {lib_bwd:.4f} ms")
+    lib_fwd = device_ms(lambda: F.grid_sample(src_nchw, grid16, **sample))
+    g_nchw = g16.permute(0, 4, 1, 2, 3).reshape(b, c, d * r, w).contiguous()
+    lib_bwd = device_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, src_nchw, grid16, 0, 0, True, [True, False]))
+    log(f"[train-kernel] sweep_warp bfloat16 at {s}, device ms: forward "
+        f"kernel {ms_fwd:.4f}, plain {plain_fwd:.4f}, grid_sample "
+        f"{lib_fwd:.4f}; backward kernel {ms_bwd:.4f}, plain "
+        f"{plain_bwd:.4f}, grid_sampler_2d_backward {lib_bwd:.4f}; one "
+        f"wrapper call {call_fwd:.4f} forward, {call_bwd:.4f} backward")
 
     # the full-resolution image warp: a depth map projected into the source
     # frame by K = 6 poses near one KITTI-like motion
@@ -593,65 +727,88 @@ def phase_train_kernels():
     gx, gy = gx.to(dev), gy.to(dev)
     img = torch.rand(b, hh, xx, 3, generator=gen).to(dev)
     gi = torch.randn((b, k, hh, xx, 3), generator=gen).to(dev)
-    err_img = _within("warp_images_border forward",
-                      IW.warp_images_border(img, gx, gy),
-                      IW.warp_images_border_reference(img, gx, gy))
+    err_img = _bitwise("warp_images_border forward",
+                       IW.warp_images_border(img, gx, gy),
+                       IW.warp_images_border_reference(img, gx, gy))
     x, y = gx.clone().requires_grad_(), gy.clone().requires_grad_()
     got = torch.autograd.grad(IW.warp_images_border(img, x, y), (x, y), gi)
     want = torch.autograd.grad(IW.warp_images_border_reference(img, x, y),
                                (x, y), gi)
     err_coord = max(_within("warp_images_border dsx", got[0], want[0]),
                     _within("warp_images_border dsy", got[1], want[1]))
-    # the kernels alone take the coordinates clamped; the plain version
-    # clamps inside (the clamp's backward is in its time)
-    xc, yc = (t.detach().requires_grad_()
-              for t in IW.clamp_coords(gx, gy, hh, xx))
-    ms_img = cuda_ms(lambda: IW.WarpImagesBorder.apply(img, xc, yc))
-    plain_img = cuda_ms(lambda: IW.warp_images_border_reference(img, gx, gy))
-    ms_coord = _grad_ms(IW.WarpImagesBorder.apply(img, xc, yc), (xc, yc), gi)
-    plain_coord = _grad_ms(IW.warp_images_border_reference(img, x, y), (x, y),
-                           gi)
+    iw = IW.kernel_library()
+    out = torch.empty((b, k, hh, xx, 3), device=dev)
+    dsx, dsy = torch.empty_like(gx), torch.empty_like(gy)
+    ms_img = device_ms(_bare(iw.warp_images_border_fwd, img, gx, gy, out, b,
+                             hh, xx, k, 3, IW.aligned(img, gx, gy, out)))
+    ms_coord = device_ms(_bare(iw.warp_images_border_bwd, img, gx, gy, gi,
+                               dsx, dsy, b, hh, xx, k, 3,
+                               IW.aligned(img, gx, gy, gi, dsx, dsy)))
+    call_img = cuda_ms(lambda: IW.warp_images_border(img, x, y))
+    call_coord = cuda_ms(_grad_fn(IW.warp_images_border(img, x, y), (x, y),
+                                  gi))
+    plain_img = plain_ms(lambda: IW.warp_images_border_reference(img, gx, gy))
+    plain_coord = plain_ms(_grad_fn(IW.warp_images_border_reference(img, x,
+                                                                    y),
+                                    (x, y), gi))
     # the library call: F.grid_sample in border mode, the K maps folded into
-    # the grid's rows, and its grid gradient
+    # the grid's rows, and its grid gradient straight from aten
     img_nchw = img.permute(0, 3, 1, 2).contiguous()
     grid = _norm_grid(gx, gy, hh, xx)
     border = dict(mode="bilinear", padding_mode="border", align_corners=True)
-    lib_img = cuda_ms(lambda: F.grid_sample(img_nchw, grid, **border))
-    grid_leaf = grid.clone().requires_grad_()
-    lib_coord = _grad_ms(F.grid_sample(img_nchw, grid_leaf, **border),
-                         grid_leaf, gi.permute(0, 4, 1, 2, 3)
-                         .reshape(b, 3, k * hh, xx).contiguous())
+    lib_img = device_ms(lambda: F.grid_sample(img_nchw, grid, **border))
+    gi_nchw = gi.permute(0, 4, 1, 2, 3).reshape(b, 3, k * hh, xx).contiguous()
+    lib_coord = device_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        gi_nchw, img_nchw, grid, 0, 1, True, [False, True]))
     log(f"[train-kernel] warp_images_border float32 at B={b}, K={k}, "
-        f"{hh}x{xx}: forward kernel {ms_img:.4f} ms, plain {plain_img:.4f} "
-        f"ms, grid_sample {lib_img:.4f} ms; coordinate backward kernel "
-        f"{ms_coord:.4f} ms, plain {plain_coord:.4f} ms, grid_sample "
-        f"backward {lib_coord:.4f} ms")
+        f"{hh}x{xx}, device ms: forward kernel {ms_img:.4f}, plain "
+        f"{plain_img:.4f}, grid_sample {lib_img:.4f}; coordinate backward "
+        f"kernel {ms_coord:.4f}, plain {plain_coord:.4f}, "
+        f"grid_sampler_2d_backward {lib_coord:.4f}; one wrapper call "
+        f"{call_img:.4f} forward, {call_coord:.4f} backward")
+    # in a process of its own: the profiler's tracing stays out of the
+    # timings that follow
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--clamp-launches"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise RuntimeError("the clamp-launch count failed:\n"
+                           + proc.stderr[-4000:])
 
     records = [
         _record("sweep_warp", "sweep_warp.cu",
                 "movedepth_tpu/ops/pallas/sweep_warp.py:662", err_fwd, ms_fwd,
-                plain_fwd, sweep_warp_work(b, r, w, c, d, r, 2), lib_fwd),
+                plain_fwd, sweep_warp_work(b, r, w, c, d, r, 2), lib_fwd,
+                call_fwd),
         _record("sweep_warp_bwd", "sweep_warp.cu",
                 "movedepth_tpu/ops/pallas/sweep_warp.py:618", err_bwd, ms_bwd,
                 plain_bwd, sweep_warp_work(b, r, w, c, d, r, 2, True),
-                lib_bwd),
+                lib_bwd, call_bwd),
         _record("warp_images_border", "image_warp.cu",
                 "movedepth_tpu/ops/pallas/image_warp.py:576", err_img, ms_img,
-                plain_img, image_warp_work(b, k, hh, xx, 3), lib_img),
+                plain_img, image_warp_work(b, k, hh, xx, 3), lib_img,
+                call_img),
         _record("warp_images_border_coord_bwd", "image_warp.cu",
                 "movedepth_tpu/ops/pallas/image_warp.py:443", err_coord,
                 ms_coord, plain_coord,
-                image_warp_work(b, k, hh, xx, 3, backward=True), lib_coord),
+                image_warp_work(b, k, hh, xx, 3, backward=True), lib_coord,
+                call_coord),
     ]
     return records, (img, gx, gy)
 
 
-def _record(name, source, replaces, err, ms, plain_ms, work, library_ms):
+def _record(name, source, replaces, err, ms, plain_ms, work, library_ms,
+            call_ms):
+    """A kernel's summary record: ``ms`` the device time of its bare launch,
+    ``call_ms`` one call of its wrapper (the gap is the caller's host
+    cost)."""
     return {"name": name, "route": "cuda",
             "source": f"movedepth_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound(*work),
-            "library_ms": library_ms}
+            "library_ms": library_ms, "call_ms": call_ms}
 
 
 def phase_l1_kernel(img, gx, gy):
@@ -688,7 +845,7 @@ def phase_l1_kernel(img, gx, gy):
     got_w, got_l1 = IW.warp_images_border(img, x, y, target=tgt)
     xr, yr = gx.clone().requires_grad_(), gy.clone().requires_grad_()
     want_w, want_l1 = IW.warp_images_border_l1_reference(img, xr, yr, tgt)
-    err_w = _within("warp_images_border_l1 warped", got_w, want_w)
+    err_w = _bitwise("warp_images_border_l1 warped", got_w, want_w)
     err_l1 = _within("warp_images_border_l1 l1", got_l1, want_l1)
     if got_l1[:, :, rows].abs().max().item() != 0:
         raise RuntimeError("the L1 of exact samples of the target is not 0")
@@ -700,38 +857,59 @@ def phase_l1_kernel(img, gx, gy):
         f"maps: l1 exactly 0; {int((want_l1 == 0).sum())} zero L1 values "
         "in all")
 
-    xc, yc = (t.detach().requires_grad_()
-              for t in IW.clamp_coords(gx, gy, hh, xx))
-
-    def two_step():
-        out = IW.WarpImagesBorder.apply(img, xc, yc)
+    def two_step(sx=gx, sy=gy):
+        out = IW.WarpImagesBorder.apply(img, sx, sy)
         return out, torch.mean(torch.abs(out - tgt[:, None]), dim=-1)
 
-    ms = cuda_ms(lambda: IW.WarpImagesBorderL1.apply(img, tgt, xc, yc))
-    plain = cuda_ms(lambda: IW.warp_images_border_l1_reference(img, gx, gy,
-                                                               tgt))
-    two = cuda_ms(two_step)
-    ms_bwd = _grad_ms(IW.WarpImagesBorderL1.apply(img, tgt, xc, yc),
-                      (xc, yc), (gi, gl))
-    plain_bwd = _grad_ms(IW.warp_images_border_l1_reference(img, x, y, tgt),
-                         (x, y), (gi, gl))
-    two_bwd = _grad_ms(two_step(), (xc, yc), (gi, gl))
+    iw = IW.kernel_library()
+    out = torch.empty((b, k, hh, xx, c), device=dev)
+    l1 = torch.empty_like(gx)
+    dsx, dsy = torch.empty_like(gx), torch.empty_like(gy)
+    ms = device_ms(_bare(iw.warp_images_border_l1_fwd, img, tgt, gx, gy, out,
+                         l1, b, hh, xx, k, c,
+                         IW.aligned(img, tgt, gx, gy, out, l1)))
+    ms_bwd = device_ms(_bare(iw.warp_images_border_l1_bwd, img, tgt, gx, gy,
+                             gi, gl, dsx, dsy, b, hh, xx, k, c,
+                             IW.aligned(img, tgt, gx, gy, gi, gl, dsx, dsy)))
+    call = cuda_ms(lambda: IW.warp_images_border(img, x, y, target=tgt))
+    call_bwd = cuda_ms(_grad_fn(IW.warp_images_border(img, x, y, target=tgt),
+                                (x, y), (gi, gl)))
+    plain = plain_ms(lambda: IW.warp_images_border_l1_reference(img, gx, gy,
+                                                                tgt))
+    plain_bwd = plain_ms(_grad_fn(IW.warp_images_border_l1_reference(
+        img, x, y, tgt), (x, y), (gi, gl)))
+    xs, ys = gx.clone().requires_grad_(), gy.clone().requires_grad_()
+    two = device_ms(two_step)
+    two_bwd = device_ms(_grad_fn(two_step(xs, ys), (xs, ys), (gi, gl)))
     log(f"[l1-kernel] warp_images_border_l1 float32 at B={b}, K={k}, "
-        f"{hh}x{xx}: forward kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"two-step (row-4 kernel + torch L1) {two:.4f} ms; backward kernel "
-        f"{ms_bwd:.4f} ms, plain {plain_bwd:.4f} ms, two-step {two_bwd:.4f} "
-        "ms")
+        f"{hh}x{xx}, device ms: forward kernel {ms:.4f}, plain {plain:.4f}, "
+        f"two-step (row-4 kernel + torch L1) {two:.4f}; backward kernel "
+        f"{ms_bwd:.4f}, plain {plain_bwd:.4f}, two-step {two_bwd:.4f}; one "
+        f"wrapper call {call:.4f} forward, {call_bwd:.4f} backward")
     return [
         _record("warp_images_border_l1", "image_warp.cu",
                 "movedepth_tpu/ops/pallas/image_warp.py:499",
                 max(err_w, err_l1), ms, plain,
-                image_warp_work(b, k, hh, xx, c, l1=True), None),
+                image_warp_work(b, k, hh, xx, c, l1=True), None, call),
         _record("warp_images_border_l1_coord_bwd", "image_warp.cu",
                 "movedepth_tpu/ops/pallas/image_warp.py:523", err_d, ms_bwd,
                 plain_bwd,
                 image_warp_work(b, k, hh, xx, c, backward=True, l1=True),
-                None),
-    ]
+                None, call_bwd),
+    ], (img, tgt, gx, gy, gi, gl)
+
+
+def phase_steps(img, tgt, gx, gy, gi, gl):
+    """The design steps of the image-warp kernels (rows 4, 5 and 4b) on
+    phase 7b's inputs: each checked against the plain version (the warped
+    stack bit for bit) and timed by its bare launch, device_ms; step
+    ``previous`` is the previous kernels, timed beside the shipped ones."""
+    from movedepth_tpu_torch import native
+    from movedepth_tpu_torch import profile_image_warp as PIW
+    for kernel, regs, stack, spill in native.ptxas_report("image_warp_steps"):
+        log(f"[steps] ptxas {kernel}: {regs} registers, {stack} bytes stack, "
+            f"{spill} bytes spilled")
+    PIW.time_steps(img, tgt, gx, gy, gi, gl, log=log)
 
 
 def _boost_pose_head(models):
@@ -1090,8 +1268,9 @@ def phase_variants():
     launches = PKV.launches
     log("[variants] batch 128, bfloat16: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in times.items())
-        + f"; public sweep_warp_corr {ab['wrapper']:.4f} ms vs bare full "
-        f"launch {ab['bare']:.4f} ms; {launches} variant launches")
+        + f" (device, bare launches); one public sweep_warp_corr call "
+        f"{ab['wrapper']:.4f} ms vs bare full launch {ab['bare']:.4f} ms "
+        f"(device); {launches} variant launches")
     if launches == 0:
         raise RuntimeError("no kernel variant was launched")
 
@@ -1111,30 +1290,35 @@ def phase_variants():
         raise RuntimeError("the full variant disagrees with the plain version")
     err_max = err.max().item()
     del want32, err
-    plain_ms = cuda_ms(lambda: SW.sweep_warp_corr_reference(src, ref, sx, sy,
-                                                            16),
-                       runs=5, warmup=1)
+    plain = device_ms(lambda: SW.sweep_warp_corr_reference(src, ref, sx, sy,
+                                                           16),
+                      launches=3, warmup=1)
+    call = cuda_ms(lambda: PKV.run_variant("full", *inputs))
     s = PKV.SHIPPED
-    return {"name": "sweep_warp_corr_variants", "route": "cuda",
-            "source": "movedepth_tpu_torch/csrc/sweep_warp_corr_variants.cu",
-            "replaces": "scripts/profile_kernel_variants.py:81",
-            "launches": launches, "max_abs_err": err_max,
-            "ms": times["full"], "plain_ms": plain_ms,
-            **bound(*sweep_corr_work(128, s["R"], s["W"], s["C"], s["D"],
-                                     s["R"], s["G"], 2)),
-            "library_ms": None}
+    rec = _record("sweep_warp_corr_variants", "sweep_warp_corr_variants.cu",
+                  "scripts/profile_kernel_variants.py:81", err_max,
+                  times["full"], plain,
+                  sweep_corr_work(128, s["R"], s["W"], s["C"], s["D"], s["R"],
+                                  s["G"], 2), None, call)
+    rec["launches"] = launches
+    return rec
 
 
 def main():
+    if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
+        _clamp_launches(phase_device())
+        return
     card = phase_device()
     phase_build()
     kernel = phase_kernel()
     cpu_models = phase_main_path()
     kernel["launches"] = phase_serve(cpu_models)
     phase_throughput(cpu_models, card)
-    train_kernels, image_inputs = phase_train_kernels()
-    l1_kernels = phase_l1_kernel(*image_inputs)
+    train_kernels, image_inputs = phase_train_kernels(card)
+    l1_kernels, l1_inputs = phase_l1_kernel(*image_inputs)
     del image_inputs
+    phase_steps(*l1_inputs)
+    del l1_inputs
     launches, train_models, phase8 = phase_train_path()
     for rec in train_kernels:
         rec["launches"] = launches[rec["name"]]

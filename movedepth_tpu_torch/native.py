@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -84,9 +85,47 @@ def build_all(names) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing, then load it."""
+def load_library(name: str, signatures=None) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its build is missing, then load it.
+
+    ``signatures`` maps a function name to its (argtypes, restype); they are
+    set once, when this process first loads the library."""
     if name not in _libs:
         build_all([name])
-        _libs[name] = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (argtypes, restype) in (signatures or {}).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
     return _libs[name]
+
+
+def ptxas_report(name: str) -> list:
+    """[(kernel, registers, stack bytes, spill-store bytes)] for each kernel
+    of this process's build of ``csrc/<name>.cu`` (empty if it was built
+    before), from nvcc's ``-Xptxas -v`` report; kernel names demangled
+    where the toolkit's ``cu++filt`` is at hand."""
+    report = build_reports.get(name)
+    rows, kernel, stack, spill = [], None, 0, 0
+    for line in (report[1] if report else "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel, stack, spill = m.group(1), 0, 0
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.append([kernel, int(m.group(1)), stack, spill])
+            kernel = None
+    filt = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cu++filt")
+    if rows and os.path.isfile(filt):
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for row, demangled in zip(rows, names):
+                row[0] = demangled
+    return [tuple(r) for r in rows]

@@ -4,8 +4,8 @@ respect to the coordinates, with an optional photometric L1 epilogue.
 Port of the TPU kernels ``movedepth_tpu/ops/pallas/image_warp.py::
 warp_images_border``, its coordinate VJP (``_coord_bwd_cw_call``) and its
 L1 epilogue (``_warp_cw_l1_cdiff``, reached with ``target=``). On CUDA
-tensors :func:`warp_images_border` clamps the coordinates and runs the
-forward and backward kernels of ``csrc/image_warp.cu`` through
+tensors :func:`warp_images_border` runs the forward and backward kernels
+of ``csrc/image_warp.cu``, which clamp the coordinates themselves, through
 :class:`WarpImagesBorder`, or with a target :class:`WarpImagesBorderL1`; on
 CPU tensors it runs the plain PyTorch versions
 :func:`warp_images_border_reference` and
@@ -15,7 +15,9 @@ oracles on the card.
 Border padding is a clamp of the coordinates into [0, W-1] x [0, R-1]
 before sampling. The clamp is ``torch.minimum(torch.maximum(x, lo), hi)``,
 whose gradient at an exact bound is 1/2, as JAX's ``jnp.clip`` has
-(``torch.clamp`` gives 1 there and ``F.grid_sample``'s border gradient 0).
+(``torch.clamp`` gives 1 there and ``F.grid_sample``'s border gradient 0),
+and 1/4 where lo = hi (a 1-pixel-wide or -tall image); the kernels apply
+the same factors on the device.
 Projections that leave the frame land exactly on a bound, so the rule
 shows in the gradient. The taps are those of the JAX package's gather path
 (``ops/sampling.py::_sample_one``): a tap past the last column or row
@@ -41,9 +43,15 @@ l1_launches = 0  # forward with the L1 epilogue
 l1_bwd_launches = 0  # coordinate backward with the L1 cotangent
 
 
-def _argtypes(pointers):
-    return [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+# the C functions' (argtypes, restype), set once when the library loads:
+# the pointers, then B, R, W, K, C, ``aligned`` and the stream
+_SIGNATURES = {
+    name: ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 6
+           + [ctypes.c_void_p], ctypes.c_int)
+    for name, pointers in (("warp_images_border_fwd", 4),
+                           ("warp_images_border_bwd", 6),
+                           ("warp_images_border_l1_fwd", 6),
+                           ("warp_images_border_l1_bwd", 8))}
 
 
 def clamp_coords(sx, sy, height, width):
@@ -63,9 +71,15 @@ def warp_images_border_reference(src, sx, sy):
     with respect to sx and sy through autograd (src too, unlike the
     kernels; the callers pass data).
     """
+    x, y = clamp_coords(sx, sy, src.shape[1], src.shape[2])
+    return sample_in_frame_reference(src, x, y)
+
+
+def sample_in_frame_reference(src, x, y):
+    """:func:`warp_images_border_reference` without its clamp: the sample
+    at coordinates already inside the frame, and its derivative there."""
     b, r, w, c = src.shape
-    _, k, h, wo = sx.shape
-    x, y = clamp_coords(sx, sy, r, w)
+    _, k, h, wo = x.shape
     x0f, y0f = torch.floor(x).detach(), torch.floor(y).detach()
     fx, fy = x - x0f, y - y0f
     x0, y0 = x0f.long(), y0f.long()
@@ -91,22 +105,25 @@ def warp_images_border_l1_reference(src, sx, sy, target):
 
 def kernel_library():
     """The image-warp kernels' library (compiled at first call), typed."""
-    lib = native.load_library("image_warp")
-    for fn, pointers in ((lib.warp_images_border_fwd, 4),
-                         (lib.warp_images_border_bwd, 6),
-                         (lib.warp_images_border_l1_fwd, 6),
-                         (lib.warp_images_border_l1_bwd, 8)):
-        fn.argtypes = _argtypes(pointers)
-        fn.restype = ctypes.c_int
-    return lib
+    return native.load_library("image_warp", _SIGNATURES)
+
+
+def aligned(*tensors):
+    """1 if every tensor's data starts on a 16-byte boundary, else 0: the
+    kernels then move the streams in 16-byte vectors."""
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _launch(fn, *tensors, shape):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel needs contiguous inputs")
+    b, r, w, k, c = shape
+    if r * w * max(c, 4) >= 2 ** 31:
+        raise ValueError(f"an image plane of {r}x{w}x{c} needs 64-bit "
+                         "offsets; the kernels take 32-bit ones")
     device = tensors[0].device
     with torch.cuda.device(device):
-        err = fn(*(t.data_ptr() for t in tensors), *shape,
+        err = fn(*(t.data_ptr() for t in tensors), *shape, aligned(*tensors),
                  torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"warp_images_border launch failed: CUDA error "
@@ -114,9 +131,10 @@ def _launch(fn, *tensors, shape):
 
 
 class WarpImagesBorder(torch.autograd.Function):
-    """The CUDA border-mode warp at coordinates already clamped into the
-    frame; differentiable with respect to the coordinates only (one
-    backward launch gives dsx and dsy)."""
+    """The CUDA border-mode warp; the kernels clamp the coordinates, and
+    the backward applies the clamp's derivative. Differentiable with
+    respect to the coordinates only (one backward launch gives dsx and
+    dsy)."""
 
     @staticmethod
     def forward(ctx, src, sx, sy):
@@ -150,8 +168,8 @@ class WarpImagesBorder(torch.autograd.Function):
 
 
 class WarpImagesBorderL1(torch.autograd.Function):
-    """The CUDA border-mode warp with the photometric L1 epilogue, at
-    coordinates already clamped into the frame: (warped, l1), l1 =
+    """The CUDA border-mode warp with the photometric L1 epilogue, on raw
+    coordinates as :class:`WarpImagesBorder`: (warped, l1), l1 =
     mean_c |warped - target| from the values the forward kernel computed.
     The backward folds the L1 cotangent into the coordinate gradient in one
     launch; it recomputes the samples from their taps, so only the inputs
@@ -236,7 +254,6 @@ def warp_images_border(src, sx, sy, target=None):
         return warp_images_border_l1_reference(src, sx, sy, target)
     if device.type != "cuda":
         raise ValueError(f"no warp_images_border for device {device}")
-    x, y = clamp_coords(sx, sy, r, w)
     if target is None:
-        return WarpImagesBorder.apply(src.detach(), x, y)
-    return WarpImagesBorderL1.apply(src.detach(), target, x, y)
+        return WarpImagesBorder.apply(src.detach(), sx, sy)
+    return WarpImagesBorderL1.apply(src.detach(), target, sx, sy)

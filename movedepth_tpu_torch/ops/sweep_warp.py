@@ -33,6 +33,13 @@ warp_bwd_launches = 0  # sweep_warp backward (source gradient)
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _WARP_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the C functions' (argtypes, restype), set once when a library loads
+_SIGNATURES = {
+    "sweep_warp_corr_f32": (_ARGTYPES, ctypes.c_int),
+    "sweep_warp_corr_bf16": (_ARGTYPES, ctypes.c_int),
+    "sweep_warp_corr_supported": ([ctypes.c_int] * 2, ctypes.c_int)}
+_WARP_SIGNATURES = {f"sweep_warp_{d}_{t}": (_WARP_ARGTYPES, ctypes.c_int)
+                    for d in ("fwd", "bwd") for t in ("f32", "bf16")}
 
 
 def grid_to_pixel(grid, height, width):
@@ -119,23 +126,12 @@ def _check_kernel_inputs(*tensors):
 
 def kernel_library():
     """The sweep_warp_corr kernel's library (compiled at first call), typed."""
-    lib = native.load_library("sweep_warp_corr")
-    for fn in (lib.sweep_warp_corr_f32, lib.sweep_warp_corr_bf16):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.sweep_warp_corr_supported.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.sweep_warp_corr_supported.restype = ctypes.c_int
-    return lib
+    return native.load_library("sweep_warp_corr", _SIGNATURES)
 
 
 def warp_library():
     """The sweep_warp kernels' library (compiled at first call), typed."""
-    lib = native.load_library("sweep_warp")
-    for fn in (lib.sweep_warp_fwd_f32, lib.sweep_warp_fwd_bf16,
-               lib.sweep_warp_bwd_f32, lib.sweep_warp_bwd_bf16):
-        fn.argtypes = _WARP_ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+    return native.load_library("sweep_warp", _WARP_SIGNATURES)
 
 
 def sweep_warp_corr(src_feat, ref_feat, sx, sy, groups: int):

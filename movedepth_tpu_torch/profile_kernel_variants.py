@@ -10,8 +10,9 @@ of the CUDA kernel: the gather (``no_gather``), the bilinear weights
 results by design and serve only to time what each stage adds; ``full``
 is the shipped kernel, bit for bit. :func:`main` times each variant at the
 shipped inference shape (B=128, 48x160, C=32, D=16, G=16, bfloat16) with
-CUDA events, then the public ``sweep_warp_corr`` wrapper (checks,
-allocation, launch) against the bare ``full`` launch. The TPU script's
+:func:`device_ms` (many bare launches between two CUDA events), then one
+call of the public ``sweep_warp_corr`` wrapper (checks, allocation,
+launch; :func:`cuda_ms`) against the bare ``full`` launch. The TPU script's
 ``prep_breakdown`` timed TPU-only preparation (``_prep_coords``,
 ``_coverage_ok``) that the port does not have; it has no counterpart.
 Everything here needs a CUDA device.
@@ -36,14 +37,14 @@ SHIPPED = dict(R=48, W=160, C=32, D=16, G=16)
 launches = 0  # variant kernel launches in this process
 
 
+_SIGNATURES = {"sweep_warp_corr_variant_bf16": (
+    [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p], ctypes.c_int)}
+
+
 def variant_library():
     """The variants' library (compiled at first call), typed."""
-    lib = native.load_library("sweep_warp_corr_variants")
-    lib.sweep_warp_corr_variant_bf16.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-        + [ctypes.c_void_p])
-    lib.sweep_warp_corr_variant_bf16.restype = ctypes.c_int
-    return lib
+    return native.load_library("sweep_warp_corr_variants", _SIGNATURES)
 
 
 def run_variant(name, src, ref, sx, sy, out=None):
@@ -92,8 +93,41 @@ def shipped_inputs(batch=128, seed=0, device="cuda"):
             sx.to(device), sy.to(device))
 
 
+def device_times(fn, launches=50, warmup=5, repeats=5):
+    """Device milliseconds of one ``fn`` call, once per run: after
+    ``warmup`` calls, each of ``repeats`` runs records a CUDA event, calls
+    ``fn`` ``launches`` times back to back, records a second event and
+    divides the elapsed time by the count. Host work before each launch
+    hides behind the device's queue unless it takes longer than the
+    kernel."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return times
+
+
+def device_ms(fn, launches=50, warmup=5):
+    """Median of :func:`device_times`: the device time of one ``fn`` call,
+    the port's kernel timer. Time a kernel through a bare launch (the
+    typed C function on preallocated outputs)."""
+    return statistics.median(device_times(fn, launches, warmup))
+
+
 def cuda_ms(fn, runs=20, warmup=3):
-    """Median milliseconds of ``fn`` over ``runs`` calls, CUDA events."""
+    """Median milliseconds of ``fn`` over ``runs`` calls, one call between
+    two CUDA events and a synchronise after each: the device time plus the
+    host work before the launch (Python, allocation, the autograd engine's
+    hand-off), which is what one call costs its caller (``call_ms``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -109,24 +143,40 @@ def cuda_ms(fn, runs=20, warmup=3):
     return statistics.median(times)
 
 
-def time_variants(inputs, runs=20):
-    """{variant: median ms} on ``inputs`` (see :func:`shipped_inputs`)."""
+def bare_variant(name, src, ref, sx, sy, out):
+    """A bare launch of variant ``name`` into ``out``: the typed C function
+    on the tensors' pointers, with no checks, no allocation and no count.
+    One :func:`run_variant` call (counted) checks the inputs first."""
+    run_variant(name, src, ref, sx, sy, out)
+    b, r, w, c = src.shape
+    _, d, h, _ = sx.shape
+    args = (VARIANTS[name], src.data_ptr(), ref.data_ptr(), sx.data_ptr(),
+            sy.data_ptr(), out.data_ptr(), b, r, w, d, h, c, SHIPPED["G"],
+            torch.cuda.current_stream(src.device).cuda_stream)
+    fn = variant_library().sweep_warp_corr_variant_bf16
+    return lambda: fn(*args)
+
+
+def time_variants(inputs):
+    """{variant: device ms of its bare launch} on ``inputs`` (see
+    :func:`shipped_inputs`), :func:`device_ms`."""
     out = torch.empty(inputs[3].shape + (SHIPPED["G"],),
                       dtype=torch.bfloat16, device=inputs[0].device)
-    return {name: cuda_ms(lambda: run_variant(name, *inputs, out=out),
-                          runs=runs) for name in VARIANTS}
+    return {name: device_ms(bare_variant(name, *inputs, out))
+            for name in VARIANTS}
 
 
 def wrapper_ab(inputs, runs=20):
-    """{"wrapper": ms of the public sweep_warp_corr, "bare": ms of the bare
-    ``full`` launch into a preallocated output}, same inputs, same call."""
+    """{"wrapper": ms of one call of the public sweep_warp_corr (checks,
+    allocation, launch; :func:`cuda_ms`), "bare": device ms of the bare
+    ``full`` launch into a preallocated output (:func:`device_ms`)}, same
+    inputs, same call."""
     out = torch.empty(inputs[3].shape + (SHIPPED["G"],),
                       dtype=torch.bfloat16, device=inputs[0].device)
     return {"wrapper": cuda_ms(lambda: SW.sweep_warp_corr(*inputs,
                                                           SHIPPED["G"]),
                                runs=runs),
-            "bare": cuda_ms(lambda: run_variant("full", *inputs, out=out),
-                            runs=runs)}
+            "bare": device_ms(bare_variant("full", *inputs, out))}
 
 
 def main(argv=None):
@@ -139,8 +189,8 @@ def main(argv=None):
     for name, ms in time_variants(inputs).items():
         print(f"{name}: {ms:.4f} ms @ batch {batch}", flush=True)
     ab = wrapper_ab(inputs)
-    print(f"public sweep_warp_corr: {ab['wrapper']:.4f} ms; bare full "
-          f"launch: {ab['bare']:.4f} ms @ batch {batch}", flush=True)
+    print(f"public sweep_warp_corr call: {ab['wrapper']:.4f} ms; bare full "
+          f"launch: {ab['bare']:.4f} ms (device) @ batch {batch}", flush=True)
 
 
 if __name__ == "__main__":

@@ -180,6 +180,106 @@ def test_image_warp_l1_kernels_match_plain_version(device):
     assert torch.count_nonzero(got_l1[:, :, 10]).item() == 0
 
 
+def _view_at(t, offset):
+    """t's values in a contiguous view that starts ``offset`` floats into
+    its storage (offset 1: not 16-byte aligned)."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return flat[offset:].view(t.shape).copy_(t)
+
+
+# (B, K, R, W, C, storage offset of every input)
+_WARP_CASES = {"c3": (2, 3, 32, 64, 3, 0), "ragged": (2, 3, 5, 7, 3, 0),
+               "unaligned": (2, 3, 16, 24, 3, 1), "w1": (2, 2, 16, 1, 3, 0),
+               "r1": (2, 2, 1, 64, 3, 0), "c1": (2, 3, 16, 24, 1, 0)}
+
+
+def _warp_case(b, k, r, w, c):
+    """Images, target, coordinates and cotangents: pixel grids shifted and
+    jittered, the first pixels of every map on exact bounds (0, W-1, R-1)
+    and out of frame, the last ones on their own pixel with the target
+    equal to the image there (|warped - target| = 0: L1 ties)."""
+    g = torch.Generator().manual_seed(7)
+    src = torch.rand(b, r, w, c, generator=g)
+    tgt = src + torch.rand(src.shape, generator=g) * 0.2 - 0.1
+    ys, xs = torch.meshgrid(torch.arange(r, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    sx = xs + torch.randn(b, k, 1, 1, generator=g) * 1.5 \
+        + 0.3 * torch.randn(b, k, r, w, generator=g)
+    sy = ys + torch.randn(b, k, 1, 1, generator=g) * 1.5 \
+        + 0.3 * torch.randn(b, k, r, w, generator=g)
+    fx, fy = sx.view(b, k, -1), sy.view(b, k, -1)
+    special = torch.tensor([[0.0, w - 1.0, -2.0, w + 3.0, 0.0, w - 1.0],
+                            [r - 1.0, 0.0, r - 1.0, -1.0, 0.0, r - 1.0]])
+    n = min(6, r * w)
+    fx[:, :, :n], fy[:, :, :n] = special[0, :n], special[1, :n]
+    ties = slice(max(n, r * w - 8), r * w)
+    fx[:, :, ties] = xs.flatten()[ties]
+    fy[:, :, ties] = ys.flatten()[ties]
+    tgt.view(b, r * w, c)[:, ties] = src.view(b, r * w, c)[:, ties]
+    gi = torch.randn((b, k, r, w, c), generator=g)
+    gl = torch.randn((b, k, r, w), generator=g)
+    return src, tgt, sx, sy, gi, gl
+
+
+@pytest.mark.parametrize("case", sorted(_WARP_CASES))
+def test_image_warp_kernels_edge_shapes(device, case):
+    """The redesigned border-warp kernels, with and without the L1
+    epilogue, on a ragged R*W, views that are not 16-byte aligned, W = 1,
+    R = 1, C = 1 and C = 3: the warped stack equals the plain version bit
+    for bit; the L1 map, dsx and dsy lie within 1e-5 of their range of its
+    autograd, exact bounds, out-of-frame points and exact L1 ties
+    included."""
+    from movedepth_tpu_torch.ops import image_warp as IW
+    b, k, r, w, c, offset = _WARP_CASES[case]
+    src, tgt, sx, sy, gi, gl = (_view_at(t.to(device), offset) for t in
+                                _warp_case(b, k, r, w, c))
+    assert IW.aligned(src, tgt, sx, sy) == int(offset == 0)
+    for target in (None, tgt):
+        x, y = sx.clone().requires_grad_(), sy.clone().requires_grad_()
+        xr, yr = sx.clone().requires_grad_(), sy.clone().requires_grad_()
+        if target is None:
+            before = (IW.launches, IW.bwd_launches)
+            got = (IW.warp_images_border(src, _view_at(x, offset),
+                                         _view_at(y, offset)),)
+            want = (IW.warp_images_border_reference(src, xr, yr),)
+            cot = (gi,)
+        else:
+            before = (IW.l1_launches, IW.l1_bwd_launches)
+            got = IW.warp_images_border(src, _view_at(x, offset),
+                                        _view_at(y, offset), target=target)
+            want = IW.warp_images_border_l1_reference(src, xr, yr, target)
+            cot = (gi, gl)
+        torch.autograd.backward(got, cot)
+        torch.autograd.backward(want, cot)
+        after = ((IW.launches, IW.bwd_launches) if target is None
+                 else (IW.l1_launches, IW.l1_bwd_launches))
+        torch.cuda.synchronize()
+        assert after == (before[0] + 1, before[1] + 1)
+        assert torch.equal(got[0], want[0])
+        pairs = [(x.grad, xr.grad), (y.grad, yr.grad)]
+        if target is not None:
+            pairs.append((got[1], want[1]))
+            ties = slice(max(min(6, r * w), r * w - 8), r * w)
+            assert torch.count_nonzero(
+                got[1].view(b, k, -1)[:, :, ties]).item() == 0
+        for a, want_a in pairs:
+            assert torch.all((a - want_a).abs()
+                             <= 1e-5 * want_a.abs().max()), case
+
+
+def test_image_warp_steps_match_plain_version(device):
+    """Every design step of csrc/image_warp_steps.cu (the previous kernels,
+    then each change up to the shipped design) against the plain version
+    at a small shape: the warped stack bit for bit, the L1 map, dsx and dsy
+    within 1e-5 of their range."""
+    from movedepth_tpu_torch import profile_image_warp as PIW
+    src, tgt, sx, sy, gi, gl = (t.to(device) for t in
+                                _warp_case(2, 6, 24, 40, 3))
+    times = PIW.time_steps(src, tgt, sx, sy, gi, gl, log=lambda _: None)
+    assert sorted(times) == sorted(PIW.STEPS)
+
+
 def test_kernel_variants_full_is_the_shipped_kernel(device):
     """The stage ablations build and run; ``full`` equals sweep_warp_corr
     bit for bit, and the others differ from it (wrong by design)."""
