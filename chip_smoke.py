@@ -29,9 +29,6 @@ without printing the final ok line:
    for bit, L1 map, and the coordinate gradient with both cotangents)
    against its plain version at batch 12, timed against it and against the
    two-step path (the row-4 warp kernel, then the L1 in torch).
-7c. the design steps of the border image-warp kernels (csrc/
-   image_warp_steps.cu, from the previous kernels to the shipped design)
-   on phase 7b's inputs, each checked and timed.
 8. train path: one train_step of the shipped Config(compute_dtype=
    "float32") models at 640x192, batch 2, on the card against the same step
    on the CPU (every loss; every model's gradient, against the spread the
@@ -82,7 +79,7 @@ KERNEL_SHAPE = dict(B=16, R=48, W=160, C=32, D=16, G=16)
 # (16 bins, 32 FPN channels) and the full-resolution warps of K = 6 maps
 TRAIN_SHAPE = dict(B=12, R=48, W=160, C=32, D=16, H=192, X=640, K=6)
 KERNELS = ("sweep_warp_corr", "sweep_warp", "image_warp",
-           "sweep_warp_corr_variants", "image_warp_steps")
+           "sweep_warp_corr_variants")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM and float32 outside the
 # tensor cores; every kernel here does float32 arithmetic
@@ -216,7 +213,6 @@ def phase_build():
     """Every kernel source at once (one nvcc each), then the typed
     libraries."""
     from movedepth_tpu_torch import native
-    from movedepth_tpu_torch import profile_image_warp as PIW
     from movedepth_tpu_torch import profile_kernel_variants as PKV
     from movedepth_tpu_torch.ops import image_warp, sweep_warp
     t0 = time.perf_counter()
@@ -225,7 +221,6 @@ def phase_build():
     sweep_warp.warp_library()
     image_warp.kernel_library()
     PKV.variant_library()
-    PIW.step_library()
     log(f"[build] {', '.join(KERNELS)}: nvcc {' '.join(native.NVCC_FLAGS)} "
         f"-> {native.BUILD_DIR}, {time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
@@ -609,10 +604,10 @@ def _clamp_launches(card):
         before = kernels()
     finally:
         P.warp_images_border = shipped
-    if now == 0:
-        log("[train-kernel] clamp launches saved: not measured (the "
-            f"profiler saw no device kernels); {card}")
-        return
+    if now == 0 or before <= now:
+        raise RuntimeError(f"clamp launches: torch.profiler counted {before} "
+                           f"CUDA kernels with the clamp in torch and {now} "
+                           "with it in the warp kernels")
     log(f"[train-kernel] photometric_losses forward + backward at batch {b}, "
         f"{w}x{h}: {before} CUDA kernels with the clamp in torch, {now} "
         f"with it in the warp kernels: {before - now} launches saved per "
@@ -740,10 +735,10 @@ def phase_train_kernels(card):
     out = torch.empty((b, k, hh, xx, 3), device=dev)
     dsx, dsy = torch.empty_like(gx), torch.empty_like(gy)
     ms_img = device_ms(_bare(iw.warp_images_border_fwd, img, gx, gy, out, b,
-                             hh, xx, k, 3, IW.aligned(img, gx, gy, out)))
+                             hh, xx, k, 3, IW.aligned(gx, gy, out)))
     ms_coord = device_ms(_bare(iw.warp_images_border_bwd, img, gx, gy, gi,
                                dsx, dsy, b, hh, xx, k, 3,
-                               IW.aligned(img, gx, gy, gi, dsx, dsy)))
+                               IW.aligned(gx, gy, gi, dsx, dsy)))
     call_img = cuda_ms(lambda: IW.warp_images_border(img, x, y))
     call_coord = cuda_ms(_grad_fn(IW.warp_images_border(img, x, y), (x, y),
                                   gi))
@@ -867,10 +862,10 @@ def phase_l1_kernel(img, gx, gy):
     dsx, dsy = torch.empty_like(gx), torch.empty_like(gy)
     ms = device_ms(_bare(iw.warp_images_border_l1_fwd, img, tgt, gx, gy, out,
                          l1, b, hh, xx, k, c,
-                         IW.aligned(img, tgt, gx, gy, out, l1)))
+                         IW.aligned(tgt, gx, gy, out, l1)))
     ms_bwd = device_ms(_bare(iw.warp_images_border_l1_bwd, img, tgt, gx, gy,
                              gi, gl, dsx, dsy, b, hh, xx, k, c,
-                             IW.aligned(img, tgt, gx, gy, gi, gl, dsx, dsy)))
+                             IW.aligned(tgt, gx, gy, gi, gl, dsx, dsy)))
     call = cuda_ms(lambda: IW.warp_images_border(img, x, y, target=tgt))
     call_bwd = cuda_ms(_grad_fn(IW.warp_images_border(img, x, y, target=tgt),
                                 (x, y), (gi, gl)))
@@ -896,20 +891,7 @@ def phase_l1_kernel(img, gx, gy):
                 plain_bwd,
                 image_warp_work(b, k, hh, xx, c, backward=True, l1=True),
                 None, call_bwd),
-    ], (img, tgt, gx, gy, gi, gl)
-
-
-def phase_steps(img, tgt, gx, gy, gi, gl):
-    """The design steps of the image-warp kernels (rows 4, 5 and 4b) on
-    phase 7b's inputs: each checked against the plain version (the warped
-    stack bit for bit) and timed by its bare launch, device_ms; step
-    ``previous`` is the previous kernels, timed beside the shipped ones."""
-    from movedepth_tpu_torch import native
-    from movedepth_tpu_torch import profile_image_warp as PIW
-    for kernel, regs, stack, spill in native.ptxas_report("image_warp_steps"):
-        log(f"[steps] ptxas {kernel}: {regs} registers, {stack} bytes stack, "
-            f"{spill} bytes spilled")
-    PIW.time_steps(img, tgt, gx, gy, gi, gl, log=log)
+    ]
 
 
 def _boost_pose_head(models):
@@ -1315,10 +1297,8 @@ def main():
     kernel["launches"] = phase_serve(cpu_models)
     phase_throughput(cpu_models, card)
     train_kernels, image_inputs = phase_train_kernels(card)
-    l1_kernels, l1_inputs = phase_l1_kernel(*image_inputs)
+    l1_kernels = phase_l1_kernel(*image_inputs)
     del image_inputs
-    phase_steps(*l1_inputs)
-    del l1_inputs
     launches, train_models, phase8 = phase_train_path()
     for rec in train_kernels:
         rec["launches"] = launches[rec["name"]]

@@ -110,20 +110,25 @@ def kernel_library():
 
 def aligned(*tensors):
     """1 if every tensor's data starts on a 16-byte boundary, else 0: the
-    kernels then move the streams in 16-byte vectors."""
+    kernels then move the streams (every tensor but the images) in 16-byte
+    vectors."""
     return int(all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def _launch(fn, *tensors, shape):
-    if not all(t.is_contiguous() for t in tensors):
+def _launch(fn, src, *streams, shape):
+    """Launch ``fn`` on the images ``src`` and the other tensors
+    ``streams``; only the streams' alignment decides the 16-byte path, as
+    the kernels read the images tap by tap."""
+    if not all(t.is_contiguous() for t in (src, *streams)):
         raise ValueError("the kernel needs contiguous inputs")
     b, r, w, k, c = shape
     if r * w * max(c, 4) >= 2 ** 31:
         raise ValueError(f"an image plane of {r}x{w}x{c} needs 64-bit "
                          "offsets; the kernels take 32-bit ones")
-    device = tensors[0].device
+    device = src.device
     with torch.cuda.device(device):
-        err = fn(*(t.data_ptr() for t in tensors), *shape, aligned(*tensors),
+        err = fn(src.data_ptr(), *(t.data_ptr() for t in streams), *shape,
+                 aligned(*streams),
                  torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"warp_images_border launch failed: CUDA error "

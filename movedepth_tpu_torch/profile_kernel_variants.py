@@ -93,13 +93,14 @@ def shipped_inputs(batch=128, seed=0, device="cuda"):
             sx.to(device), sy.to(device))
 
 
-def device_times(fn, launches=50, warmup=5, repeats=5):
-    """Device milliseconds of one ``fn`` call, once per run: after
+def device_ms(fn, launches=50, warmup=5, repeats=5):
+    """The device time of one ``fn`` call, the port's kernel timer: after
     ``warmup`` calls, each of ``repeats`` runs records a CUDA event, calls
     ``fn`` ``launches`` times back to back, records a second event and
-    divides the elapsed time by the count. Host work before each launch
-    hides behind the device's queue unless it takes longer than the
-    kernel."""
+    divides the elapsed time by the count; the median run. Host work
+    before each launch hides behind the device's queue unless it takes
+    longer than the kernel. Time a kernel through a bare launch (the typed
+    C function on preallocated outputs)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -113,14 +114,7 @@ def device_times(fn, launches=50, warmup=5, repeats=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
-    return times
-
-
-def device_ms(fn, launches=50, warmup=5):
-    """Median of :func:`device_times`: the device time of one ``fn`` call,
-    the port's kernel timer. Time a kernel through a bare launch (the
-    typed C function on preallocated outputs)."""
-    return statistics.median(device_times(fn, launches, warmup))
+    return statistics.median(times)
 
 
 def cuda_ms(fn, runs=20, warmup=3):

@@ -187,10 +187,13 @@ def _view_at(t, offset):
     return flat[offset:].view(t.shape).copy_(t)
 
 
-# (B, K, R, W, C, storage offset of every input)
-_WARP_CASES = {"c3": (2, 3, 32, 64, 3, 0), "ragged": (2, 3, 5, 7, 3, 0),
-               "unaligned": (2, 3, 16, 24, 3, 1), "w1": (2, 2, 16, 1, 3, 0),
-               "r1": (2, 2, 1, 64, 3, 0), "c1": (2, 3, 16, 24, 1, 0)}
+# (B, K, R, W, C, storage offset of the images, of every other input)
+_WARP_CASES = {"c3": (2, 3, 32, 64, 3, 0, 0),
+               "ragged": (2, 3, 5, 7, 3, 0, 0),
+               "unaligned": (2, 3, 16, 24, 3, 1, 1),
+               "unaligned_images": (2, 3, 16, 24, 3, 1, 0),
+               "w1": (2, 2, 16, 1, 3, 0, 0), "r1": (2, 2, 1, 64, 3, 0, 0),
+               "c1": (2, 3, 16, 24, 1, 0, 0)}
 
 
 def _warp_case(b, k, r, w, c):
@@ -225,16 +228,19 @@ def _warp_case(b, k, r, w, c):
 @pytest.mark.parametrize("case", sorted(_WARP_CASES))
 def test_image_warp_kernels_edge_shapes(device, case):
     """The redesigned border-warp kernels, with and without the L1
-    epilogue, on a ragged R*W, views that are not 16-byte aligned, W = 1,
-    R = 1, C = 1 and C = 3: the warped stack equals the plain version bit
+    epilogue, on a ragged R*W, views that are not 16-byte aligned (every
+    input, or the images alone, which keep the 16-byte path), W = 1, R = 1,
+    C = 1 and C = 3: the warped stack equals the plain version bit
     for bit; the L1 map, dsx and dsy lie within 1e-5 of their range of its
     autograd, exact bounds, out-of-frame points and exact L1 ties
     included."""
     from movedepth_tpu_torch.ops import image_warp as IW
-    b, k, r, w, c, offset = _WARP_CASES[case]
-    src, tgt, sx, sy, gi, gl = (_view_at(t.to(device), offset) for t in
-                                _warp_case(b, k, r, w, c))
-    assert IW.aligned(src, tgt, sx, sy) == int(offset == 0)
+    b, k, r, w, c, src_offset, offset = _WARP_CASES[case]
+    src, tgt, sx, sy, gi, gl = (
+        _view_at(t.to(device), src_offset if i == 0 else offset)
+        for i, t in enumerate(_warp_case(b, k, r, w, c)))
+    assert IW.aligned(src) == int(src_offset == 0)
+    assert IW.aligned(tgt, sx, sy, gi, gl) == int(offset == 0)
     for target in (None, tgt):
         x, y = sx.clone().requires_grad_(), sy.clone().requires_grad_()
         xr, yr = sx.clone().requires_grad_(), sy.clone().requires_grad_()
@@ -266,18 +272,6 @@ def test_image_warp_kernels_edge_shapes(device, case):
         for a, want_a in pairs:
             assert torch.all((a - want_a).abs()
                              <= 1e-5 * want_a.abs().max()), case
-
-
-def test_image_warp_steps_match_plain_version(device):
-    """Every design step of csrc/image_warp_steps.cu (the previous kernels,
-    then each change up to the shipped design) against the plain version
-    at a small shape: the warped stack bit for bit, the L1 map, dsx and dsy
-    within 1e-5 of their range."""
-    from movedepth_tpu_torch import profile_image_warp as PIW
-    src, tgt, sx, sy, gi, gl = (t.to(device) for t in
-                                _warp_case(2, 6, 24, 40, 3))
-    times = PIW.time_steps(src, tgt, sx, sy, gi, gl, log=lambda _: None)
-    assert sorted(times) == sorted(PIW.STEPS)
 
 
 def test_kernel_variants_full_is_the_shipped_kernel(device):
