@@ -233,9 +233,18 @@ def phase_build():
         log(f"[build] {name}: ready after {report[0]:.1f} s; ptxas: "
             f"{len(regs)} kernel instantiations, {min(regs)}-{max(regs)} "
             f"registers, {sum(r[3] for r in rows)} bytes spilled")
-    for kernel, regs, stack, spill in native.ptxas_report("image_warp"):
-        log(f"[build] image_warp {kernel}: {regs} registers, {stack} bytes "
-            f"stack, {spill} bytes spilled")
+    # every sweep-warp and image-warp kernel; of the warp-correlate pairs,
+    # the shipped C=32, G=16 ones
+    for name in ("sweep_warp", "image_warp", "sweep_warp_corr"):
+        for kernel, regs, stack, spill, smem in native.ptxas_report(name):
+            short = re.sub(r"\((int|bool)\)|<unnamed>::|^void ", "",
+                           kernel)
+            if short.endswith(")"):
+                short = short[:short.rindex("(")]
+            if name == "sweep_warp_corr" and ", 32, 16" not in short:
+                continue
+            log(f"[build] {short}: {regs} registers, {stack} bytes stack, "
+                f"{spill} bytes spilled, {smem} bytes static shared memory")
 
 
 def _bf16_ulp(x):
@@ -301,14 +310,45 @@ def _kitti_K(b, h, w):
                          [0, 0, 1, 0], [0, 0, 0, 1]]).repeat(b, 1, 1)
 
 
-def phase_kernel():
-    """Kernel vs plain version on the card at the shipped prior-scale shape
-    (batch cut to 16) with coordinates from the sweep grid of small,
-    KITTI-like motions. Returns the kernel's summary record."""
+def _sweep_coords(b, r, w, d, gen, scale=1.0):
+    """Pixel coordinates (B, D, R, W) of the plane sweep over a depth prior
+    (5-60 m) with z-guided bins, for a KITTI-like motion between frames
+    (``_kitti_pose``; scale 1: ~0.1 m, scale 10: ~1 m, KITTI speed)."""
     import torch
     from movedepth_tpu_torch.ops import sweep_warp as SW
     from movedepth_tpu_torch.ops.costvolume import (schedule_depth_bins_z,
                                                     sweep_grid)
+    K = _kitti_K(b, r, w)
+    T = _kitti_pose(b, gen, scale)
+    prior = torch.rand(b, r, w, generator=gen) * 55 + 5
+    bins = schedule_depth_bins_z(prior, d, 0.3, 30.0 * T[:, 2, 3].abs()[:, None,
+                                                                        None])
+    grid = sweep_grid(bins, K, torch.linalg.inv(K), T)
+    return tuple(t.contiguous() for t in SW.grid_to_pixel(grid, r, w))
+
+
+def _corr_times(b, gen, lib):
+    """Device ms of the bare bfloat16 warp-correlate kernel at the shipped
+    prior-scale shape and batch ``b``, on phase 3's kind of inputs."""
+    import torch
+    s = KERNEL_SHAPE
+    r, w, c, d, g = s["R"], s["W"], s["C"], s["D"], s["G"]
+    dev = torch.device("cuda")
+    src = torch.randn(b, r, w, c, generator=gen).bfloat16().to(dev)
+    ref = torch.randn(b, r, w, c, generator=gen).bfloat16().to(dev)
+    sx, sy = (t.to(dev) for t in _sweep_coords(b, r, w, d, gen))
+    out = torch.empty((b, d, r, w, g), dtype=torch.bfloat16, device=dev)
+    return device_ms(_bare(lib.sweep_warp_corr_bf16, src, ref, sx, sy, out, b,
+                           r, w, d, r, c, g))
+
+
+def phase_kernel(card):
+    """Kernel vs plain version on the card at the shipped prior-scale shape
+    (batch cut to 16) with coordinates from the sweep grid of small,
+    KITTI-like motions; times at batch 16, 128 (the serving batch) and 1.
+    Returns the kernel's summary record."""
+    import torch
+    from movedepth_tpu_torch.ops import sweep_warp as SW
 
     s = KERNEL_SHAPE
     b, r, w, c, d, g = s["B"], s["R"], s["W"], s["C"], s["D"], s["G"]
@@ -316,13 +356,7 @@ def phase_kernel():
     dev = torch.device("cuda")
     src = torch.randn(b, r, w, c, generator=gen).to(dev)
     ref = torch.randn(b, r, w, c, generator=gen).to(dev)
-    K = _kitti_K(b, r, w)
-    T = _kitti_pose(b, gen)
-    prior = torch.rand(b, r, w, generator=gen) * 55 + 5
-    bins = schedule_depth_bins_z(prior, d, 0.3, 30.0 * T[:, 2, 3].abs()[:, None,
-                                                                        None])
-    grid = sweep_grid(bins, K, torch.linalg.inv(K), T)
-    sx, sy = (t.contiguous().to(dev) for t in SW.grid_to_pixel(grid, r, w))
+    sx, sy = (t.to(dev) for t in _sweep_coords(b, r, w, d, gen))
 
     # the smoke shape, then one sample: the batch-1 shape the serving CLI
     # gives the kernel
@@ -355,9 +389,19 @@ def phase_kernel():
             f"(device), one wrapper call {times[tag][1]:.4f} ms, plain "
             f"{times[tag][2]:.4f} ms")
     ms, call, plain = times["bfloat16"]
-    return _record("sweep_warp_corr", "sweep_warp_corr.cu",
-                   "movedepth_tpu/ops/pallas/sweep_warp.py:586", err32, ms,
-                   plain, sweep_corr_work(b, r, w, c, d, r, g, 2), None, call)
+    rec = _record("sweep_warp_corr", "sweep_warp_corr.cu",
+                  "movedepth_tpu/ops/pallas/sweep_warp.py:586", err32, ms,
+                  plain, sweep_corr_work(b, r, w, c, d, r, g, 2), None, call)
+    for nb in (128, 1):
+        ms_nb = _corr_times(nb, gen, lib)
+        bound_nb = bound(*sweep_corr_work(nb, r, w, c, d, r, g, 2))
+        rec[f"ms_b{nb}"], rec[f"bound_ms_b{nb}"] = ms_nb, bound_nb["bound_ms"]
+        log(f"[kernel] bfloat16 at batch {nb}: bare launch {ms_nb:.4f} ms "
+            f"(device), bound {bound_nb['bound_ms']:.4f} ms "
+            f"({bound_nb['bound_ms'] / ms_nb:.1%} of it); {card}")
+    log(f"[kernel] bfloat16 at batch {b}: bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_ms'] / ms:.1%} of it); {card}")
+    return rec
 
 
 def _temper_pose_head(models):
@@ -401,7 +445,7 @@ def phase_main_path():
     cpu_models = build_models(cfg32, "cpu", torch.Generator().manual_seed(0))
     _temper_pose_head(cpu_models)
     models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
-    batch = P.synthetic_batch(cfg32, 2, seed=0)
+    batch = P.synthetic_batch(cfg32, 2, seed=0, device="cpu")
     t0 = time.perf_counter()
     want = P.forward_infer_fused(cpu_models, batch, cfg32)
     log(f"[main] CPU float32 forward_infer_fused at batch 2: "
@@ -487,22 +531,33 @@ def phase_serve(cpu_models):
 
 
 def phase_throughput(cpu_models, card):
-    """forward_infer frames/s in bfloat16 (bench.py's program) at batch 128
-    and at batch 1 (the eval protocol), CUDA events after warmup."""
+    """forward_infer frames/s in bfloat16 (bench.py's program) at batch 128,
+    with the kernel and with this script swapping in its plain version, in
+    turns (kernel, plain, kernel, plain), then at batch 1 (the eval
+    protocol); CUDA events after warmup."""
     import torch
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.ops import sweep_warp as SW
 
     cfg = Config()
     models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
     torch.backends.cudnn.benchmark = True
-    for bsz, iters in ((128, 10), (1, 50)):
+    kernel = P.sweep_warp_corr
+    runs = [(128, 10, "kernel"), (128, 10, "plain"), (128, 10, "kernel"),
+            (128, 10, "plain"), (1, 50, "kernel")]
+    for bsz, iters, label in runs:
         batch = P.synthetic_batch(cfg.replace(frame_ids=cfg.matching_ids),
                                   bsz, seed=1, device="cuda")
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: P.forward_infer(models, batch, cfg), runs=iters,
-                     warmup=3)
-        log(f"[throughput] forward_infer bfloat16 batch {bsz}: "
+        P.sweep_warp_corr = (kernel if label == "kernel"
+                             else SW.sweep_warp_corr_reference)
+        try:
+            ms = cuda_ms(lambda: P.forward_infer(models, batch, cfg),
+                         runs=iters, warmup=3)
+        finally:
+            P.sweep_warp_corr = kernel
+        log(f"[throughput] forward_infer bfloat16 batch {bsz}, {label}: "
             f"{ms:.3f} ms/iter (median of {iters}), "
             f"{bsz / ms * 1e3:.1f} frames/s, peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
@@ -614,37 +669,52 @@ def _clamp_launches(card):
         f"step (torch.profiler); {card}")
 
 
-def phase_train_kernels(card):
-    """The train step's four kernels against their plain versions at the
-    shipped train shapes (batch 12): the sweep warp in float32 and bfloat16
-    and its source gradient (twice: atomics make it run-to-run variable),
-    the border image warp and its coordinate gradient; each timed against
-    its plain version and its library call. Returns (the kernels' summary
-    records, the image warp's inputs)."""
+def _dsrc_check(name, src, sx, sy, g, bf16=False):
+    """The sweep warp's source gradient through the kernel (SweepWarp's
+    backward) against the plain version's autograd on the same inputs, in
+    float32 (bf16: src and g rounded to bfloat16 first, the plain version
+    in float32). Returns (max |kernel - plain|, the kernel's dsrc)."""
+    import torch
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    if bf16:
+        src, g = src.bfloat16(), g.bfloat16()
+    leaf = src.clone().requires_grad_()
+    got = torch.autograd.grad(SW.sweep_warp(leaf, sx, sy), leaf, g)[0]
+    ref = src.float().requires_grad_()
+    want = torch.autograd.grad(SW.sweep_warp_reference(ref, sx, sy), ref,
+                               g.float())[0]
+    if got.dtype != src.dtype:
+        raise RuntimeError(f"{name}: dsrc is {got.dtype}, src {src.dtype}")
+    return _within(name, got, want, bf16=bf16), got
+
+
+def phase_sweep_warp(card):
+    """The train step's sweep warp at the shipped train shape (batch 12):
+    forward in float32 and bfloat16, and its source gradient in both on
+    phase 7's coordinates (exact-bound and out-of-frame ones included;
+    float32 twice, for the run-to-run difference) and on KITTI-speed
+    coordinates, against the plain version's autograd. Times, in bfloat16:
+    the forward (bare launch), the whole backward (every launch
+    SweepWarp.backward makes, on preallocated tensors) on both coordinate
+    sets, the global-atomic kernel's whole backward (zero, kernel, cast) as
+    the yardstick, the plain versions and the library calls. Returns the
+    two kernels' summary records and ``gen``, for phase 7's image warp."""
     import torch
     import torch.nn.functional as F
-    from movedepth_tpu_torch.ops import image_warp as IW
     from movedepth_tpu_torch.ops import sweep_warp as SW
-    from movedepth_tpu_torch.ops.costvolume import (schedule_depth_bins_z,
-                                                    sweep_grid)
-    from movedepth_tpu_torch.ops.geometry import backproject, project
 
     s = TRAIN_SHAPE
     b, r, w, c, d = s["B"], s["R"], s["W"], s["C"], s["D"]
     gen = torch.Generator().manual_seed(1)
     dev = torch.device("cuda")
-    K = _kitti_K(b, r, w)
-    T = _kitti_pose(b, gen)
-    prior = torch.rand(b, r, w, generator=gen) * 55 + 5
-    bins = schedule_depth_bins_z(prior, d, 0.3, 30.0 * T[:, 2, 3].abs()[:, None,
-                                                                        None])
-    sx, sy = SW.grid_to_pixel(sweep_grid(bins, K, torch.linalg.inv(K), T),
-                              r, w)
-    sx, sy = sx.contiguous(), sy.contiguous()
+    sx, sy = _sweep_coords(b, r, w, d, gen)
     _edge_cases(sx, sy, w, r)
     sx, sy = sx.to(dev), sy.to(dev)
     src = torch.randn(b, r, w, c, generator=gen).to(dev)
     g = torch.randn((b, d, r, w, c), generator=gen).to(dev)
+    fast = tuple(t.to(dev) for t in _sweep_coords(
+        b, r, w, d, torch.Generator().manual_seed(3), 10.0))
+    coords = {"phase 7": (sx, sy), "KITTI speed": fast}
 
     err_fwd = _within("sweep_warp float32 forward", SW.sweep_warp(src, sx, sy),
                       SW.sweep_warp_reference(src, sx, sy))
@@ -652,36 +722,50 @@ def phase_train_kernels(card):
     _within("sweep_warp bfloat16 forward", SW.sweep_warp(src16, sx, sy),
             SW.sweep_warp_reference(src16.float(), sx, sy), bf16=True)
 
-    leaf = src.clone().requires_grad_()
-    want = torch.autograd.grad(SW.sweep_warp_reference(leaf, sx, sy), leaf,
-                               g)[0]
-    runs = []
-    for _ in range(2):
-        leaf = src.clone().requires_grad_()
-        runs.append(torch.autograd.grad(SW.sweep_warp(leaf, sx, sy), leaf,
-                                        g)[0])
-    err_bwd = max(_within(f"sweep_warp float32 dsrc, run {i + 1}", run, want)
-                  for i, run in enumerate(runs))
+    plan = SW.bwd_plan(src.shape, torch.bfloat16, r)
+    if plan is None:
+        raise RuntimeError("the train shape takes the global-atomic kernel")
+    log(f"[train-kernel] sweep_warp backward plan at {s}: {plan}")
+    SW.warp_bwd_launches = SW.warp_bwd_global_launches = 0
+    err_bwd, runs = 0.0, []
+    for tag, (x, y) in coords.items():
+        for i in range(2 if tag == "phase 7" else 1):
+            err, got = _dsrc_check(f"sweep_warp float32 dsrc, {tag}, run "
+                                   f"{i + 1}", src, x, y, g)
+            err_bwd = max(err_bwd, err)
+            if tag == "phase 7":
+                runs.append(got)
+        _dsrc_check(f"sweep_warp bfloat16 dsrc, {tag}", src, x, y, g, True)
     log(f"[train-kernel] sweep_warp dsrc run-to-run max difference "
-        f"{(runs[0] - runs[1]).abs().max().item():.3e} (float32 atomics)")
-    g16 = g.bfloat16()
-    leaf16 = src16.clone().requires_grad_()
-    leaf32 = src16.float().requires_grad_()
-    _within("sweep_warp bfloat16 dsrc",
-            torch.autograd.grad(SW.sweep_warp(leaf16, sx, sy), leaf16, g16)[0],
-            torch.autograd.grad(SW.sweep_warp_reference(leaf32, sx, sy),
-                                leaf32, g16.float())[0], bf16=True)
+        f"{(runs[0] - runs[1]).abs().max().item():.3e} (float32 "
+        f"shared-memory atomics; max|dsrc| {runs[0].abs().max().item():.3e})")
+    if SW.warp_bwd_global_launches or SW.warp_bwd_launches != 5:
+        raise RuntimeError("the checks did not all take the cluster kernel: "
+                           f"{SW.warp_bwd_launches} cluster, "
+                           f"{SW.warp_bwd_global_launches} global launches")
 
-    # bfloat16, the train path's dtype, for the times: each kernel by a
-    # bare launch on preallocated outputs, device_ms; one call of its
-    # wrapper (the backward through autograd), cuda_ms
+    # bfloat16, the train path's dtype, for the times
     lib = SW.warp_library()
+    g16 = g.bfloat16()
     out16 = torch.empty((b, d, r, w, c), dtype=torch.bfloat16, device=dev)
-    dsrc = torch.zeros((b, r, w, c), device=dev)
+    dsrc16 = torch.empty((b, r, w, c), dtype=torch.bfloat16, device=dev)
+    dsrc32 = torch.zeros((b, r, w, c), device=dev)
     ms_fwd = device_ms(_bare(lib.sweep_warp_fwd_bf16, src16, sx, sy, out16,
                              b, r, w, d, r, c))
-    ms_bwd = device_ms(_bare(lib.sweep_warp_bwd_bf16, g16, sx, sy, dsrc, b,
-                             r, w, d, r, c))
+    ms_bwd, ms_global = {}, {}
+    for tag, (x, y) in coords.items():
+        ms_bwd[tag] = device_ms(_bare(
+            lib.sweep_warp_bwd_bf16, g16, x, y, dsrc16, b, r, w, d, r, c,
+            plan["cs"], plan["cluster"], plan["rows"], plan["hrows"],
+            plan["halo"]))
+        launch = _bare(lib.sweep_warp_bwd_global_bf16, g16, x, y, dsrc32, b,
+                       r, w, d, r, c)
+
+        def whole_global(launch=launch):
+            dsrc32.zero_()
+            launch()
+            dsrc16.copy_(dsrc32)
+        ms_global[tag] = device_ms(whole_global)
     call_fwd = cuda_ms(lambda: SW.sweep_warp(src16, sx, sy))
     plain_fwd = plain_ms(lambda: SW.sweep_warp_reference(src16, sx, sy))
     leaf16 = src16.clone().requires_grad_()
@@ -698,12 +782,45 @@ def phase_train_kernels(card):
     g_nchw = g16.permute(0, 4, 1, 2, 3).reshape(b, c, d * r, w).contiguous()
     lib_bwd = device_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
         g_nchw, src_nchw, grid16, 0, 0, True, [True, False]))
+    work_bwd = sweep_warp_work(b, r, w, c, d, r, 2, True)
     log(f"[train-kernel] sweep_warp bfloat16 at {s}, device ms: forward "
         f"kernel {ms_fwd:.4f}, plain {plain_fwd:.4f}, grid_sample "
-        f"{lib_fwd:.4f}; backward kernel {ms_bwd:.4f}, plain "
+        f"{lib_fwd:.4f}; whole backward (1 cluster launch) "
+        + ", ".join(f"{ms:.4f} on {k} coordinates" for k, ms in ms_bwd.items())
+        + "; global-atomic backward (zero, kernel, cast) "
+        + ", ".join(f"{ms:.4f} on {k}" for k, ms in ms_global.items())
+        + f"; bound {bound(*work_bwd)['bound_ms']:.4f}; plain "
         f"{plain_bwd:.4f}, grid_sampler_2d_backward {lib_bwd:.4f}; one "
-        f"wrapper call {call_fwd:.4f} forward, {call_bwd:.4f} backward")
+        f"wrapper call {call_fwd:.4f} forward, {call_bwd:.4f} backward; "
+        f"{card}")
+    fwd = _record("sweep_warp", "sweep_warp.cu",
+                  "movedepth_tpu/ops/pallas/sweep_warp.py:662", err_fwd,
+                  ms_fwd, plain_fwd, sweep_warp_work(b, r, w, c, d, r, 2),
+                  lib_fwd, call_fwd)
+    bwd = _record("sweep_warp_bwd", "sweep_warp.cu",
+                  "movedepth_tpu/ops/pallas/sweep_warp.py:618", err_bwd,
+                  ms_bwd["phase 7"], plain_bwd, work_bwd, lib_bwd, call_bwd)
+    bwd["ms_kitti_speed"] = ms_bwd["KITTI speed"]
+    bwd["global_ms"] = ms_global["phase 7"]
+    return [fwd, bwd], gen
 
+
+def phase_train_kernels(card, gen):
+    """The border image warp and its coordinate gradient against their
+    plain versions at the shipped train shape (batch 12, K = 6 maps,
+    640x192), inputs drawn from ``gen`` after phase 7's sweep-warp inputs,
+    each timed against its plain version and its library call; then the
+    clamp-launch count. Returns (the kernels' summary records, the image
+    warp's inputs)."""
+    import torch
+    import torch.nn.functional as F
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    from movedepth_tpu_torch.ops.geometry import backproject, project
+
+    s = TRAIN_SHAPE
+    b = s["B"]
+    dev = torch.device("cuda")
     # the full-resolution image warp: a depth map projected into the source
     # frame by K = 6 poses near one KITTI-like motion
     hh, xx, k = s["H"], s["X"], s["K"]
@@ -773,14 +890,6 @@ def phase_train_kernels(card):
                            + proc.stderr[-4000:])
 
     records = [
-        _record("sweep_warp", "sweep_warp.cu",
-                "movedepth_tpu/ops/pallas/sweep_warp.py:662", err_fwd, ms_fwd,
-                plain_fwd, sweep_warp_work(b, r, w, c, d, r, 2), lib_fwd,
-                call_fwd),
-        _record("sweep_warp_bwd", "sweep_warp.cu",
-                "movedepth_tpu/ops/pallas/sweep_warp.py:618", err_bwd, ms_bwd,
-                plain_bwd, sweep_warp_work(b, r, w, c, d, r, 2, True),
-                lib_bwd, call_bwd),
         _record("warp_images_border", "image_warp.cu",
                 "movedepth_tpu/ops/pallas/image_warp.py:576", err_img, ms_img,
                 plain_img, image_warp_work(b, k, hh, xx, 3), lib_img,
@@ -925,7 +1034,7 @@ def _launch_counts():
 def _zero_launch_counts():
     from movedepth_tpu_torch.ops import image_warp as IW
     from movedepth_tpu_torch.ops import sweep_warp as SW
-    SW.warp_launches = SW.warp_bwd_launches = 0
+    SW.warp_launches = SW.warp_bwd_launches = SW.warp_bwd_global_launches = 0
     IW.launches = IW.bwd_launches = 0
     IW.l1_launches = IW.l1_bwd_launches = 0
 
@@ -987,8 +1096,9 @@ def phase_train_path():
     models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
     bf16_models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
     one_thread = {k: copy.deepcopy(m) for k, m in cpu_models.items()}
-    batch = P.synthetic_batch(cfg32, 2, seed=0)
-    draws = P.sample_draws(cfg32, 2, torch.Generator().manual_seed(0))
+    batch = P.synthetic_batch(cfg32, 2, seed=0, device="cpu")
+    draws = P.sample_draws(cfg32, 2, torch.Generator().manual_seed(0),
+                           device="cpu")
 
     want, seconds = _f32_step(cfg32, cpu_models, batch, draws)
     threads = torch.get_num_threads()
@@ -1008,9 +1118,10 @@ def phase_train_path():
     torch.cuda.synchronize()
     launches = _launch_counts()
     log(f"[train] kernel launches of one card train_step: {launches}")
-    if list(launches.values()) != [1, 1, 2, 2, 0, 0]:
-        raise RuntimeError("expected sweep_warp 1 forward + 1 backward and "
-                           "warp_images_border 2 forward + 2 backward")
+    if list(launches.values()) != [1, 1, 0, 2, 2, 0, 0]:
+        raise RuntimeError("expected sweep_warp 1 forward + 1 backward (the "
+                           "cluster kernel) and warp_images_border 2 "
+                           "forward + 2 backward")
     spreads = _grad_rel(one_thread, cpu_models)
     _card_vs_cpu("train", got, want, models, cpu_models, spreads, threads)
 
@@ -1055,10 +1166,10 @@ def phase_train_path_l1(init, batch, draws, spreads, threads, got_off):
     launches = _launch_counts()
     log(f"[train-l1] kernel launches of one card train_step with kernel_l1: "
         f"{launches}")
-    if list(launches.values()) != [1, 1, 0, 0, 2, 2]:
-        raise RuntimeError("expected sweep_warp 1 + 1, warp_images_border "
-                           "0 + 0 and warp_images_border_l1 2 forward + 2 "
-                           "backward")
+    if list(launches.values()) != [1, 1, 0, 0, 0, 2, 2]:
+        raise RuntimeError("expected sweep_warp 1 + 1 (the cluster kernel), "
+                           "warp_images_border 0 + 0 and "
+                           "warp_images_border_l1 2 forward + 2 backward")
     _card_vs_cpu("train-l1", got, want, models, cpu_models, spreads, threads)
     worst = max(abs(got[k].item() - got_off[k].item()) / abs(got_off[k].item())
                 for k in got_off)
@@ -1070,9 +1181,10 @@ def phase_train_path_l1(init, batch, draws, spreads, threads, got_off):
 
 def phase_train_throughput(cpu_models, card):
     """train_step in bfloat16 autocast at batch 12, 640x192 (the shipped
-    config): 3 warmup steps, then the median of 10, CUDA events; then the
-    same with the plain versions swapped in for the two kernel Functions,
-    then with kernel_l1 on (phase 9b). Returns the kernel_l1 ms/step."""
+    config): 3 warmup steps, then the median of 10, CUDA events; with the
+    kernels and with the plain versions swapped in for the two kernel
+    Functions, in turns (kernels, plain, kernels, plain), then with
+    kernel_l1 on (phase 9b). Returns the kernel_l1 ms/step."""
     import torch
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
@@ -1103,17 +1215,20 @@ def phase_train_throughput(cpu_models, card):
         assert target is None  # kernel_l1 is off in this run
         return IW.warp_images_border_reference(src, sx, sy)
 
-    ms = run("kernels", cfg)
     kernels = (P.sweep_warp, P.warp_images_border)
-    P.sweep_warp = SW.sweep_warp_reference
-    P.warp_images_border = plain_warp
-    try:
-        plain = run("plain versions", cfg)
-    finally:
-        P.sweep_warp, P.warp_images_border = kernels
+    times = {"kernels": [], "plain versions": []}
+    for label in ("kernels", "plain versions") * 2:
+        if label != "kernels":
+            P.sweep_warp = SW.sweep_warp_reference
+            P.warp_images_border = plain_warp
+        try:
+            times[label].append(run(label, cfg))
+        finally:
+            P.sweep_warp, P.warp_images_border = kernels
     l1 = run("kernels, kernel_l1", cfg.replace(kernel_l1=True))
-    log(f"[train-throughput] kernels {ms:.3f} ms/step vs plain versions "
-        f"{plain:.3f} ms/step; with kernel_l1 {l1:.3f} ms/step")
+    log(f"[train-throughput] in turns: kernels {times['kernels']} ms/step, "
+        f"plain versions {times['plain versions']} ms/step; with kernel_l1 "
+        f"{l1:.3f} ms/step")
     return l1
 
 
@@ -1208,6 +1323,7 @@ def phase_train_cli(l1_ms, card):
         step = _check_folders(models_dir, ("weights_0", "weights_1", "last"),
                               ALL_MODELS)
         want = {"sweep_warp": 8, "sweep_warp_bwd": 4,
+                "sweep_warp_bwd_global": 0,
                 "warp_images_border": 0, "warp_images_border_coord_bwd": 0,
                 "warp_images_border_l1": 16,
                 "warp_images_border_l1_coord_bwd": 8}
@@ -1286,17 +1402,161 @@ def phase_variants():
     return rec
 
 
+def _parent_corr_library(parent):
+    """The warp-correlate kernel of an earlier tree unpacked at ``parent``
+    (its csrc/sweep_warp_corr.cu and headers), built as the port builds
+    its own; None when ``parent`` holds none."""
+    import ctypes
+    from movedepth_tpu_torch import native
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    cu = os.path.join(parent, "movedepth_tpu_torch", "csrc",
+                      "sweep_warp_corr.cu")
+    if not os.path.isfile(cu):
+        return None
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = str(native.BUILD_DIR / "parent_sweep_warp_corr.so")
+    subprocess.run([native.nvcc(), *native.NVCC_FLAGS, "-o", so, cu],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(so)
+    for fn, (argtypes, restype) in SW._SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def phase_design_steps(card, parent=None):
+    """DESIGN STEPS (timing only). Row 3, the sweep warp's source gradient
+    at the train shape in bfloat16, as the whole backward on preallocated
+    tensors, on phase 7's and on KITTI-speed coordinates: the global-atomic
+    kernel (zero, kernel, cast), its register run-merge of planes that
+    share a tap base, and the cluster kernel by channel slice and halo
+    rows, without and with the run-merge. Row 1,
+    the warp-correlate kernel at batch 128, 16 and 1: the earlier tree's
+    kernel (``parent``) and the new one with 1 to 16 planes a thread. Each
+    step is checked against the plain version first."""
+    import torch
+    from movedepth_tpu_torch import profile_kernel_variants as PKV
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+
+    s = TRAIN_SHAPE
+    b, r, w, c, d = s["B"], s["R"], s["W"], s["C"], s["D"]
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    sx, sy = _sweep_coords(b, r, w, d, gen)
+    _edge_cases(sx, sy, w, r)
+    src = torch.randn(b, r, w, c, generator=gen).bfloat16().to(dev)
+    g16 = torch.randn((b, d, r, w, c), generator=gen).bfloat16().to(dev)
+    fast = _sweep_coords(b, r, w, d, torch.Generator().manual_seed(3), 10.0)
+    coords = {"phase 7": (sx.to(dev), sy.to(dev)),
+              "KITTI speed": tuple(t.to(dev) for t in fast)}
+    lib = SW.warp_library()
+    dsrc16 = torch.empty((b, r, w, c), dtype=torch.bfloat16, device=dev)
+    dsrc32 = torch.zeros((b, r, w, c), device=dev)
+    args = (b, r, w, d, r, c)
+
+    def with_buffer(fn, x, y):
+        launch = _bare(fn, g16, x, y, dsrc32, *args)
+
+        def whole():
+            dsrc32.zero_()
+            launch()
+            dsrc16.copy_(dsrc32)
+        return whole
+
+    def cluster(fn, cs, halo, x, y):
+        plan = SW.bwd_plan(src.shape, torch.bfloat16, r, cs=cs, halo=halo)
+        return _bare(fn, g16, x, y, dsrc16, *args, plan["cs"],
+                     plan["cluster"], plan["rows"], plan["hrows"],
+                     plan["halo"])
+
+    steps = {
+        "global": lambda x, y: with_buffer(lib.sweep_warp_bwd_global_bf16,
+                                           x, y),
+    }
+    for blocks in (1, 3, 4):
+        steps[f"merge_minblocks{blocks}"] = (
+            lambda x, y, blocks=blocks: with_buffer(
+                lambda *a: lib.sweep_warp_bwd_merge_bf16(blocks, *a), x, y))
+    kinds = {0: "cluster", 1: "merge_cluster", 2: "cluster_red",
+             3: "merge_cluster_red"}
+    for step, cs, halo in ((0, 16, 0), (0, 32, 0), (0, 8, 0), (0, 16, 2),
+                           (0, 8, 2), (0, 8, 6), (1, 16, 2), (1, 8, 2),
+                           (2, 16, 2), (2, 8, 2), (2, 8, 6), (3, 16, 2),
+                           (3, 8, 2), (3, 8, 6)):
+        steps[f"{kinds[step]}_cs{cs}_h{halo}"] = (
+            lambda x, y, step=step, cs=cs, halo=halo: cluster(
+                lambda *a: lib.sweep_warp_bwd_step_bf16(step, *a), cs, halo,
+                x, y))
+    table = {}
+    for tag, (x, y) in coords.items():
+        leaf = src.float().requires_grad_()
+        want = torch.autograd.grad(SW.sweep_warp_reference(leaf, x, y), leaf,
+                                   g16.float())[0]
+        for name, make in steps.items():
+            fn = make(x, y)
+            fn()
+            torch.cuda.synchronize()
+            _within(f"step {name}, {tag}", dsrc16, want, bf16=True)
+            table.setdefault(name, {})[tag] = device_ms(fn)
+    for name, row in table.items():
+        log(f"[steps] row 3 {name}: " + ", ".join(
+            f"{ms:.4f} ms on {tag}" for tag, ms in row.items())
+            + f"; {card}")
+
+    # row 1
+    lines = []
+    parent_lib = _parent_corr_library(parent) if parent else None
+    vlib = PKV.variant_library()
+    gen = torch.Generator().manual_seed(0)
+    for nb in (128, 16, 1):
+        src_c = torch.randn(nb, r, w, c, generator=gen).bfloat16().to(dev)
+        ref_c = torch.randn(nb, r, w, c, generator=gen).bfloat16().to(dev)
+        x, y = (t.to(dev) for t in _sweep_coords(nb, r, w, d, gen))
+        out = torch.empty((nb, d, r, w, 16), dtype=torch.bfloat16, device=dev)
+        want32 = SW.sweep_warp_corr_reference(src_c.float(), ref_c.float(), x,
+                                              y, 16)
+        times = {}
+        if parent_lib is not None:
+            times["parent"] = device_ms(_bare(
+                parent_lib.sweep_warp_corr_bf16, src_c, ref_c, x, y, out, nb,
+                r, w, d, r, c, 16))
+            _within(f"row 1 step parent, batch {nb}", out, want32, bf16=True)
+        for planes in (4, 8, 16, 108, 308, 1004, 1008, 1016, 2008):
+            name = (f"planes{planes % 100}_rows{planes // 100 % 10 + 1}"
+                    f"_chunks{2 ** (planes // 1000)}")
+            times[name] = device_ms(_bare(
+                vlib.sweep_warp_corr_planes_bf16, planes, src_c, ref_c, x, y,
+                out, nb, r, w, d, r, c, 16))
+            _within(f"row 1 step {name}, batch {nb}", out, want32, bf16=True)
+        del want32
+        lines.append(f"[steps] row 1 batch {nb}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in times.items()) + f"; {card}")
+    for line in lines:
+        log(line)
+
+
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
         return
+    if sys.argv[1:2] == ["--steps"]:  # the design steps alone
+        card = phase_device()
+        phase_build()
+        phase_kernel(card)
+        phase_sweep_warp(card)
+        phase_design_steps(card, *sys.argv[2:3])
+        phase_variants()
+        log(card)
+        return
     card = phase_device()
     phase_build()
-    kernel = phase_kernel()
+    kernel = phase_kernel(card)
     cpu_models = phase_main_path()
     kernel["launches"] = phase_serve(cpu_models)
     phase_throughput(cpu_models, card)
-    train_kernels, image_inputs = phase_train_kernels(card)
+    sweep_kernels, gen = phase_sweep_warp(card)
+    image_kernels, image_inputs = phase_train_kernels(card, gen)
+    train_kernels = sweep_kernels + image_kernels
     l1_kernels = phase_l1_kernel(*image_inputs)
     del image_inputs
     launches, train_models, phase8 = phase_train_path()

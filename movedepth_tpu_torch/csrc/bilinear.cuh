@@ -47,37 +47,33 @@ __device__ __forceinline__ void store16(__nv_bfloat16* __restrict__ p,
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // Values of T in one 16-byte vector.
 template <typename T>
 struct Vec {
   static constexpr int N = 16 / sizeof(T);
 };
 
-template <typename T, int C>
-__device__ __forceinline__ void load_row(const T* __restrict__ p,
-                                         float (&dst)[C]) {
-  constexpr int V = Vec<T>::N;
-  static_assert(C % V == 0, "C channels must fill whole 16-byte vectors");
-#pragma unroll
-  for (int i = 0; i < C / V; ++i) load16(p + i * V, dst + i * V);
-}
-
-template <typename T, int C>
-__device__ __forceinline__ void store_row(T* __restrict__ p,
-                                          const float (&src)[C]) {
-  constexpr int V = Vec<T>::N;
-  if constexpr (C % V == 0) {
-#pragma unroll
-    for (int i = 0; i < C / V; ++i) store16(p + i * V, src + i * V);
+// N values of T from floats, rounded once, N * sizeof(T) <= 16 bytes (8 or
+// 16 bytes in one store, else one value at a time).
+template <typename T, int N>
+__device__ __forceinline__ void store_small(T* __restrict__ p,
+                                            const float* src) {
+  if constexpr (N * sizeof(T) == 16) {
+    store16(p, src);
+  } else if constexpr (N == 4 && sizeof(T) == 2) {
+    uint2 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+    h[0] = __floats2bfloat162_rn(src[0], src[1]);
+    h[1] = __floats2bfloat162_rn(src[2], src[3]);
+    *reinterpret_cast<uint2*>(p) = u;
   } else {
 #pragma unroll
-    for (int c = 0; c < C; ++c) store1(p + c, src[c]);
+    for (int i = 0; i < N; ++i) {
+      if constexpr (sizeof(T) == 2)
+        p[i] = __float2bfloat16_rn(src[i]);
+      else
+        p[i] = src[i];
+    }
   }
 }
 

@@ -14,27 +14,38 @@
 //
 // Design. The TPU kernel builds one-hot selection matrices and runs the
 // gather as matmuls because the TPU has no vector gather; Hopper gathers
-// natively, so this is a plain gather kernel. One thread owns one output
-// pixel (b, h, x) and loops over the D depth hypotheses: ref[b,h,x,:] is
-// read once into registers and reused D times. Each tap reads its C source
-// channels with 16-byte vector loads; neighbouring threads hold neighbouring
-// x, so coordinate reads and the G-wide output rows are coalesced.
+// natively, so this is a plain gather kernel. The channels of a point are
+// split over lanes: each lane owns one 16-byte chunk (8 bfloat16 or 4
+// float32 channels), so a point takes L = C/V lanes (4 at C=32 in bf16) and
+// each tap is one 16-byte load a lane. The lane correlates its chunk with
+// the same chunk of ref (read once into registers, reused over the
+// thread's planes). Group g averages channels k*G+g, so the lanes whose
+// chunks hold the same groups add with __shfl_xor_sync; the first G/V
+// lanes then store the point's G outputs as coalesced 16-byte rows (for
+// G < V the reduction first runs inside the lane, and lane 0 stores). A
+// thread walks kPlanes planes of one pixel; the grid covers (pixel tile,
+// plane group), plane groups of one tile on neighbouring blocks, so they
+// run together and share the tile's ref chunks and source taps in L2.
+// Registers stay small (one chunk each of taps, sums and ref), so enough
+// warps are resident to keep the gathers in flight, and batch 1 (7,680
+// pixels) still launches 4*L threads a pixel.
 //
 // What bounds it: HBM traffic. At the shipped B=128, D=16, H=R=48, W=160,
 // C=32, G=16 in bf16 it writes 128*16*48*160*16*2 B = 503 MB and reads 126
-// MB of f32 coordinates; the 4 taps re-read the 63 MB of source features
-// D times, mostly from L2 because neighbouring threads share taps. The
-// arithmetic is ~5*C FMAs per point. No wgmma and no TMA: there
-// is no matrix product here, and staging tiles through shared memory with
-// TMA is left for a later optimisation, as is computing sx/sy in-kernel from
-// the depth bins (which would remove the coordinate reads). The kernel
-// itself is in sweep_warp_corr.cuh, shared with the stage ablations of
-// sweep_warp_corr_variants.cu.
+// MB of f32 coordinates and 126 MB of features; the 4 taps re-read the
+// source features D times, mostly from L1 and L2 because neighbouring
+// points share taps. The arithmetic is ~5*C FMAs per point. No wgmma and
+// no TMA: there is no matrix product here. Staging a source window with
+// TMA, writing Reg3D's layout directly and computing sx/sy in-kernel from
+// the depth bins (which would remove the coordinate reads) are left for
+// later. The kernel itself is in sweep_warp_corr.cuh, shared with the
+// stage ablations of sweep_warp_corr_variants.cu.
 
 #include "sweep_warp_corr.cuh"
 
 namespace {
 
+using mdt_swc::grid_blocks;
 using mdt_swc::kThreads;
 using mdt_swc::sweep_warp_corr_kernel;
 
@@ -48,12 +59,11 @@ template <typename T>
 int launch(const void* src, const void* ref, const void* sx, const void* sy,
            void* out, int B, int R, int W, int D, int H, int C, int G,
            cudaStream_t stream) {
-  const long long n = static_cast<long long>(B) * H * W;
-  if (n == 0 || D == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
+  if (static_cast<long long>(B) * H * W == 0 || D == 0) return 0;
 #define SWC_CASE(c, g)                                                    \
   if (C == c && G == g) {                                                 \
-    sweep_warp_corr_kernel<T, c, g><<<grid, kThreads, 0, stream>>>(       \
+    sweep_warp_corr_kernel<T, c, g>                                       \
+        <<<grid_blocks<T, c>(B, H, W, D), kThreads, 0, stream>>>(         \
         static_cast<const T*>(src), static_cast<const T*>(ref),           \
         static_cast<const float*>(sx), static_cast<const float*>(sy),     \
         static_cast<T*>(out), B, R, W, D, H);                             \

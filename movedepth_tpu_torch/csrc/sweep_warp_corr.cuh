@@ -10,85 +10,146 @@ namespace mdt_swc {
 
 // Stages a variant skips (bit mask).
 enum Skip : int {
-  kNoGather = 1,     // every tap reads one fixed address (pixel 0)
+  kNoGather = 1,     // every tap reads one fixed address (the lane's chunk
+                     // of source pixel 0)
   kNoWeights = 2,    // every tap weighs 1/4 (no bilinear weight math)
   kNoCorrelate = 4,  // no product with ref (ref is not read)
-  kNoReduce = 8,     // store the first channel of each group, no group sum
+  kNoReduce = 8,     // no shuffle: each lane stores its own partial sums
 };
-
-template <typename T, int C>
-__device__ __forceinline__ void add_tap(const T* __restrict__ p, float w,
-                                        float (&acc)[C]) {
-  float v[C];
-  mdt::load_row<T, C>(p, v);
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = fmaf(w, v[c], acc[c]);
-}
 
 constexpr int kThreads = 128;
 
+// Planes a thread walks (one plane group). Blocks of one pixel tile and
+// neighbouring plane groups have neighbouring indices, so they run
+// together and read the tile's reference chunks and source taps from L2.
+template <int kPlanes>
+__host__ __device__ constexpr int plane_groups(int D) {
+  return (D + kPlanes - 1) / kPlanes;
+}
+
 // src (B,R,W,C), ref (B,H,W,C), sx/sy (B,D,H,W) f32 -> out (B,D,H,W,G).
-template <typename T, int C, int G, int kSkip = 0>
+// L = C / V lanes own one point, each a 16-byte chunk of V channels;
+// grid: (pixel tiles x plane groups); a tile is kTileRows rows of
+// kThreads / L / kTileRows pixels.
+template <typename T, int C, int G, int kSkip = 0, int kPlanes = 4,
+          int kTileRows = 1, int kChunks = 1>
 __global__ void __launch_bounds__(kThreads)
     sweep_warp_corr_kernel(const T* __restrict__ src,
                            const T* __restrict__ ref,
                            const float* __restrict__ sx,
                            const float* __restrict__ sy, T* __restrict__ out,
                            int B, int R, int W, int D, int H) {
+  constexpr int V0 = mdt::Vec<T>::N;
+  constexpr int V = V0 * kChunks;  // channels a lane owns
+  constexpr int L = C / V;
+  static_assert(C % V == 0 && 32 % L == 0, "C must be V, 2V, ... 32V");
   static_assert(C % G == 0, "groups must divide channels");
-  const long long n = static_cast<long long>(B) * H * W;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = static_cast<int>(i % W);
-  const long long bh = i / W;  // b * H + h
-  const int h = static_cast<int>(bh % H);
-  const int b = static_cast<int>(bh / H);
-
-  float r[C];
-  if constexpr ((kSkip & kNoCorrelate) == 0)
-    mdt::load_row<T, C>(ref + i * C, r);
-  const T* __restrict__ s = src + static_cast<long long>(b) * R * W * C;
   constexpr float kInvK = static_cast<float>(G) / static_cast<float>(C);
 
-  for (int d = 0; d < D; ++d) {
+  constexpr int kCols = kThreads / L / kTileRows;
+  const int groups = plane_groups<kPlanes>(D);
+  const int tiles_x = (W + kCols - 1) / kCols;
+  const int tiles_h = (H + kTileRows - 1) / kTileRows;
+  const long long tile = blockIdx.x / groups;
+  const int d0 = static_cast<int>(blockIdx.x % groups) * kPlanes;
+  const int lane = threadIdx.x % L;
+  const int pt = threadIdx.x / L;
+  const int tx = static_cast<int>(tile % tiles_x);
+  const long long bt = tile / tiles_x;  // b * tiles_h + h tile
+  const int h_ = static_cast<int>(bt % tiles_h) * kTileRows + pt / kCols;
+  const int x_ = tx * kCols + pt % kCols;
+  const int b_ = static_cast<int>(bt / tiles_h);
+  const bool live = b_ < B && h_ < H && x_ < W;
+  // dead lanes follow pixel 0 and store nothing: every lane of a warp
+  // takes part in the shuffles
+  const int x = live ? x_ : 0;
+  const int h = live ? h_ : 0;
+  const int b = live ? b_ : 0;
+  const long long q = (static_cast<long long>(b) * H + h) * W + x;
+
+  float r[V];
+  if constexpr ((kSkip & kNoCorrelate) == 0) {
+#pragma unroll
+    for (int u = 0; u < V; u += V0) mdt::load16(ref + q * C + lane * V + u, r + u);
+  }
+  const T* __restrict__ s =
+      src + static_cast<long long>(b) * R * W * C + lane * V;
+
+#pragma unroll
+  for (int dd = 0; dd < kPlanes; ++dd) {
+    const int d = d0 + dd;
+    if (d >= D) break;
     const long long p = ((static_cast<long long>(b) * D + d) * H + h) * W + x;
     const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
-    float acc[C];
+    float acc[V];
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+    for (int j = 0; j < V; ++j) acc[j] = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (!t.valid[k]) continue;
-      const T* tap =
-          (kSkip & kNoGather) != 0 ? s : s + mdt::tap_offset(t, k, W) * C;
-      add_tap<T, C>(tap, (kSkip & kNoWeights) != 0 ? 0.25f : t.w[k], acc);
+      float v[V];
+      const T* tap = (kSkip & kNoGather) != 0 ? s
+                                              : s + mdt::tap_offset(t, k, W) * C;
+#pragma unroll
+      for (int u = 0; u < V; u += V0) mdt::load16(tap + u, v + u);
+      const float wk = (kSkip & kNoWeights) != 0 ? 0.25f : t.w[k];
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = fmaf(wk, v[j], acc[j]);
+    }
+    if constexpr ((kSkip & kNoCorrelate) == 0) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] *= r[j];
     }
 
-    // correlate, then the group mean over k under the (k*G + g) order
-    float o[G];
-    if constexpr ((kSkip & kNoReduce) != 0) {
-      // the other channels' sums stay computed: only the reduction goes
+    // the group mean over k under the (k*G + g) order: channel lane*V + j
+    // belongs to group (lane*V + j) % G
+    T* __restrict__ o = out + p * G;
+    if constexpr (G >= V) {
+      // lanes lane, lane ^ G/V, lane ^ 2G/V, ... hold the same V groups
+      if constexpr ((kSkip & kNoReduce) == 0) {
 #pragma unroll
-      for (int c = G; c < C; ++c) asm volatile("" : : "f"(acc[c]));
+        for (int m = G / V; m < L; m <<= 1)
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-        o[g] = (kSkip & kNoCorrelate) != 0 ? acc[g] : acc[g] * r[g];
-    } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g) o[g] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if constexpr ((kSkip & kNoCorrelate) != 0)
-          o[c % G] += acc[c];
-        else
-          o[c % G] = fmaf(acc[c], r[c], o[c % G]);
+          for (int j = 0; j < V; ++j)
+            acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
       }
 #pragma unroll
-      for (int g = 0; g < G; ++g) o[g] *= kInvK;
+      for (int j = 0; j < V; ++j) acc[j] *= kInvK;
+      if (live && lane < G / V) {
+#pragma unroll
+        for (int u = 0; u < V; u += V0) mdt::store16(o + lane * V + u, acc + u);
+      }
+    } else {
+      // one lane holds V / G channels of every group
+      float sum[G];
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) sum[gg] = acc[gg];
+#pragma unroll
+      for (int j = G; j < V; ++j) sum[j % G] += acc[j];
+      if constexpr ((kSkip & kNoReduce) == 0) {
+#pragma unroll
+        for (int m = 1; m < L; m <<= 1)
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg)
+            sum[gg] += __shfl_xor_sync(0xffffffffu, sum[gg], m);
+      }
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) sum[gg] *= kInvK;
+      if (live && lane == 0) mdt::store_small<T, G>(o, sum);
     }
-    mdt::store_row<T, G>(out + p * G, o);
   }
+}
+
+// Blocks of a launch over B*H*W pixels and D planes.
+template <typename T, int C, int kPlanes = 4, int kTileRows = 1,
+          int kChunks = 1>
+inline unsigned grid_blocks(int B, int H, int W, int D) {
+  constexpr int kCols =
+      kThreads / (C / mdt::Vec<T>::N / kChunks) / kTileRows;
+  const long long tiles = static_cast<long long>(B) *
+                          ((H + kTileRows - 1) / kTileRows) *
+                          ((W + kCols - 1) / kCols);
+  return static_cast<unsigned>(tiles * plane_groups<kPlanes>(D));
 }
 
 }  // namespace mdt_swc

@@ -33,9 +33,11 @@ def _init_weights(module: nn.Module, generator: torch.Generator):
             m.reset_parameters()
 
 
-def build_models(cfg: Config, device="cpu",
+def build_models(cfg: Config, device="cuda",
                  generator: torch.Generator = None) -> Dict[str, nn.Module]:
-    """The shipped pipeline's models, in eval mode on ``device``.
+    """The shipped pipeline's models, in eval mode on ``device`` (the card
+    unless the caller asks for the CPU; without a card it raises, as torch
+    does).
 
     Mono encoder/decoder, pose encoder/decoder (unless ``load_pose``), the
     FPN matching encoder, the Reg3D regularizer, the uncertainty head and

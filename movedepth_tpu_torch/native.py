@@ -101,10 +101,12 @@ def load_library(name: str, signatures=None) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> list:
-    """[(kernel, registers, stack bytes, spill-store bytes)] for each kernel
-    of this process's build of ``csrc/<name>.cu`` (empty if it was built
-    before), from nvcc's ``-Xptxas -v`` report; kernel names demangled
-    where the toolkit's ``cu++filt`` is at hand."""
+    """[(kernel, registers, stack bytes, spill-store bytes, static shared
+    memory bytes)] for each kernel of this process's build of
+    ``csrc/<name>.cu`` (empty if it was built before), from nvcc's
+    ``-Xptxas -v`` report; kernel names demangled where the toolkit's
+    ``cu++filt`` is at hand. Dynamic shared memory is set at launch and
+    not in the report."""
     report = build_reports.get(name)
     rows, kernel, stack, spill = [], None, 0, 0
     for line in (report[1] if report else "").splitlines():
@@ -117,7 +119,9 @@ def ptxas_report(name: str) -> list:
             stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
-            rows.append([kernel, int(m.group(1)), stack, spill])
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([kernel, int(m.group(1)), stack, spill,
+                         int(smem.group(1)) if smem else 0])
             kernel = None
     filt = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cu++filt")

@@ -71,9 +71,10 @@ def as_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
 
 
 def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
-                    device="cpu", with_pose: bool = False):
+                    device="cuda", with_pose: bool = False):
     """The JAX package's synthetic batch (smooth random frames, KITTI
-    intrinsics) as tensors on ``device``."""
+    intrinsics) as tensors on ``device`` (the card unless the caller asks
+    for the CPU)."""
     return as_batch(make_batch(cfg, batch_size, seed, with_pose), device)
 
 
@@ -244,12 +245,13 @@ def forward_mono_infer(models, batch, cfg: Config):
 # ------------------------------------------------------------------ training
 
 def sample_draws(cfg: Config, batch_size: int, generator=None,
-                 device="cpu"):
+                 device="cuda"):
     """The randomness of one training forward: the masked-augmentation box
     (x0, y0) and the automask tiebreak noise, one (B, H, W, 1) standard
     normal map per mono scale (none with ``disable_automasking``) and one
     more with ``mask_mvs_auto``, in the order ``forward_train`` uses them.
-    ``generator`` (torch's default one if None) must live on ``device``."""
+    ``generator`` (torch's default one if None) must live on ``device``,
+    the card unless the caller asks for the CPU."""
     h, w = cfg.height, cfg.width
     box = sample_box(h, w, (h // 3, w // 3), generator, device)
     n = (0 if cfg.disable_automasking else len(cfg.scales)) + int(

@@ -32,7 +32,9 @@ def device(monkeypatch):
     return torch.device("cuda")
 
 
-def _sweep_inputs(b=2, d=16, h=48, w=160, c=32):
+def _sweep_inputs(b=2, d=16, h=48, w=160, c=32, motion=1.0):
+    """Features and sweep coordinates at a KITTI-like motion (``motion``
+    10: ~1 m between frames, KITTI speed)."""
     g = torch.Generator().manual_seed(0)
     src = torch.randn(b, h, w, c, generator=g)
     ref = torch.randn(b, h, w, c, generator=g)
@@ -42,7 +44,7 @@ def _sweep_inputs(b=2, d=16, h=48, w=160, c=32):
                                0.3)
     T = transformation_from_parameters(
         torch.randn(b, 3, generator=g) * 5e-3,
-        torch.tensor([[0.3, 0.02, -0.1]]).repeat(b, 1))
+        torch.tensor([[0.3, 0.02, -0.1]]).repeat(b, 1) * motion)
     sx, sy = SW.grid_to_pixel(sweep_grid(bins, K, torch.linalg.inv(K), T),
                               h, w)
     return src, ref, sx.contiguous(), sy.contiguous()
@@ -65,6 +67,36 @@ def test_kernel_matches_plain_version(device, dtype):
         tol = tol + torch.exp2(torch.floor(torch.log2(
             want.abs().clamp_min(1e-30))) - 7)
     assert torch.all((got.float() - want).abs() <= tol)
+
+
+_SWC_PAIRS = [(8, 4), (8, 8), (16, 4), (16, 8), (16, 16), (32, 4), (32, 8),
+              (32, 16), (32, 32), (64, 4), (64, 8), (64, 16), (64, 32)]
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.parametrize("c,groups", _SWC_PAIRS)
+def test_kernel_every_channel_group_pair(device, c, groups):
+    """Every (C, G) pair the kernel is built for, in both dtypes, at batch 2
+    and batch 1: within 1e-5 of the volume's range (plus one bf16 ulp of
+    the float32 result in bfloat16)."""
+    src, ref, sx, sy = (t.to(device) for t in _sweep_inputs(h=16, w=40,
+                                                            c=c))
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (2, 1):
+            args = [t[:b].contiguous() for t in (src.to(dtype), ref.to(dtype),
+                                                 sx, sy)]
+            got = SW.sweep_warp_corr(*args, groups)
+            want = SW.sweep_warp_corr_reference(
+                args[0].float(), args[1].float(), *args[2:], groups)
+            torch.cuda.synchronize()
+            tol = 1e-5 * want.abs().max()
+            if dtype == torch.bfloat16:
+                tol = tol + _bf16_ulp(want)
+            assert got.dtype == dtype and got.shape == want.shape
+            assert torch.all((got.float() - want).abs() <= tol), (dtype, b)
 
 
 def test_kernel_out_of_frame_gives_exact_zeros(device):
@@ -111,6 +143,87 @@ def test_sweep_warp_kernels_match_plain_version(device, dtype):
             ref_leaf.grad.abs().clamp_min(1e-30))) - 7)
     assert torch.all((got.float() - want).abs() <= tol)
     assert torch.all((leaf.grad.float() - ref_leaf.grad).abs() <= dtol)
+
+
+def _check_dsrc(src, sx, sy, seed=1):
+    """The sweep warp's source gradient through SweepWarp's backward against
+    the plain version's autograd in float32 on the same (rounded) inputs:
+    within 1e-5 of dsrc's range, plus one bf16 ulp in bfloat16. Returns
+    the kernel launches it made (cluster, global-atomic)."""
+    g = torch.randn(sx.shape + src.shape[-1:],
+                    generator=torch.Generator().manual_seed(seed))
+    g = g.to(src.device, src.dtype)
+    before = (SW.warp_bwd_launches, SW.warp_bwd_global_launches)
+    leaf = src.clone().requires_grad_()
+    got = torch.autograd.grad(SW.sweep_warp(leaf, sx, sy), leaf, g)[0]
+    launched = (SW.warp_bwd_launches - before[0],
+                SW.warp_bwd_global_launches - before[1])
+    ref = src.float().requires_grad_()
+    want = torch.autograd.grad(SW.sweep_warp_reference(ref, sx, sy), ref,
+                               g.float())[0]
+    torch.cuda.synchronize()
+    assert got.dtype == src.dtype and got.shape == src.shape
+    tol = 1e-5 * want.abs().max()
+    if src.dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(want)
+    assert torch.all((got.float() - want).abs() <= tol)
+    return launched
+
+
+# (C, dtype) of the source gradient's card tests: the FPN's widths in both
+# dtypes, and widths that fill 16-byte vectors but no larger power of two
+_BWD_WIDTHS = [(c, dt) for c in (8, 16, 32, 64)
+               for dt in (torch.float32, torch.bfloat16)] + [
+    (4, torch.float32), (12, torch.float32), (24, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("c,dtype", _BWD_WIDTHS)
+def test_sweep_warp_bwd_widths(device, c, dtype):
+    """The cluster kernel at every channel width, exact-bound and
+    out-of-frame taps included: one cluster launch, no global one."""
+    src, _, sx, sy = _sweep_inputs(c=c)
+    sx, sy = _warp_coords(sx, sy, src.shape[2], src.shape[1])
+    src, sx, sy = (t.to(device) for t in (src.to(dtype), sx, sy))
+    assert SW.bwd_plan(src.shape, dtype, sx.shape[2]) is not None
+    assert _check_dsrc(src, sx, sy) == (1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sweep_warp_bwd_kitti_speed(device, dtype):
+    """~1 m between frames: epipolar segments of 10-20 pixels, taps that
+    cross the CTAs' row bands."""
+    src, _, sx, sy = _sweep_inputs(motion=10.0)
+    src, sx, sy = (t.to(device) for t in (src.to(dtype), sx, sy))
+    assert _check_dsrc(src, sx, sy) == (1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", [(37.25, 20.5), (40.0, 24.0),
+                                   (159.0, 47.0)])
+def test_sweep_warp_bwd_every_point_on_one_pixel(device, dtype, where):
+    """The worst contention: every point of every plane samples one place
+    (inside, on a pixel, on the last pixel), so all adds land on the same
+    four source pixels."""
+    src, _, sx, sy = _sweep_inputs()
+    sx, sy = torch.full_like(sx, where[0]), torch.full_like(sy, where[1])
+    src, sx, sy = (t.to(device) for t in (src.to(dtype), sx, sy))
+    assert _check_dsrc(src, sx, sy) == (1, 0)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 4),
+                                     (torch.bfloat16, 8)])
+def test_sweep_warp_bwd_global_kernel_for_an_oversize_plane(device, dtype,
+                                                            c):
+    """A plane whose narrowest band does not fit a CTA's shared memory takes
+    the global-atomic kernel (one launch, the cluster kernel none)."""
+    b, r, w, d, h = 1, 64, 2048, 2, 8
+    assert SW.bwd_plan((b, r, w, c), dtype, h) is None
+    gen = torch.Generator().manual_seed(4)
+    src = torch.randn(b, r, w, c, generator=gen)
+    sx = torch.rand(b, d, h, w, generator=gen) * (w + 6.0) - 3.0
+    sy = torch.rand(b, d, h, w, generator=gen) * (r + 6.0) - 3.0
+    src, sx, sy = (t.to(device) for t in (src.to(dtype), sx, sy))
+    assert _check_dsrc(src, sx, sy) == (0, 1)
 
 
 def _image_inputs(b=2, k=6, h=48, w=96):
@@ -297,12 +410,13 @@ def test_train_step_kernel_l1_card_matches_cpu(device):
     from movedepth_tpu_torch.train import state as S
     cfg = Config(height=64, width=96, compute_dtype="float32",
                  kernel_l1=True)
-    models = build_models(cfg)
+    models = build_models(cfg, "cpu")
     with torch.no_grad():
         for p in models["pose"].net[3].parameters():
             p.mul_(40.0)
-    batch = P.synthetic_batch(cfg, 2, seed=11)
-    draws = P.sample_draws(cfg, 2, torch.Generator().manual_seed(5))
+    batch = P.synthetic_batch(cfg, 2, seed=11, device="cpu")
+    draws = P.sample_draws(cfg, 2, torch.Generator().manual_seed(5),
+                           device="cpu")
     gpu_batch = {k: v.to(device) for k, v in batch.items()}
     gpu_draws = {"box": draws["box"],
                  "noise": [n.to(device) for n in draws["noise"]]}
@@ -352,12 +466,13 @@ def test_train_step_card_matches_cpu(device):
     from movedepth_tpu_torch.ops import image_warp as IW
     from movedepth_tpu_torch.train import state as S
     cfg = Config(height=64, width=96, compute_dtype="float32")
-    models = build_models(cfg)
+    models = build_models(cfg, "cpu")
     with torch.no_grad():  # a few-pixel motion: no automask near-ties
         for p in models["pose"].net[3].parameters():
             p.mul_(40.0)
-    batch = P.synthetic_batch(cfg, 2, seed=11)
-    draws = P.sample_draws(cfg, 2, torch.Generator().manual_seed(5))
+    batch = P.synthetic_batch(cfg, 2, seed=11, device="cpu")
+    draws = P.sample_draws(cfg, 2, torch.Generator().manual_seed(5),
+                           device="cpu")
     gpu_models = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
     one_thread = {k: copy.deepcopy(m) for k, m in models.items()}
 
@@ -393,8 +508,8 @@ def test_forward_infer_fused_card_matches_cpu(device):
     """The main path on the card (through the kernel) against the same
     port on the CPU (through the plain version), float32, 64x96."""
     cfg = Config(height=64, width=96, compute_dtype="float32")
-    models = build_models(cfg)
-    batch = P.synthetic_batch(cfg, 2, seed=11)
+    models = build_models(cfg, "cpu")
+    batch = P.synthetic_batch(cfg, 2, seed=11, device="cpu")
     want = P.forward_infer_fused(models, batch, cfg)
     models = {k: m.to(device) for k, m in models.items()}
     before = SW.launches

@@ -108,12 +108,13 @@ def train_pair():
     weights, batch and draws: (losses, gradients) of each. On one thread:
     with several, the convolutions' backward sums in a varying order and
     two runs of the same step differ by ~1e-6."""
-    models = build_models(CFG, generator=torch.Generator().manual_seed(7))
+    models = build_models(CFG, "cpu", torch.Generator().manual_seed(7))
     with torch.no_grad():  # a few-pixel motion, as the parity tests use
         for p in models["pose"].net[3].parameters():
             p.mul_(40.0)
-    batch = P.synthetic_batch(CFG, B, seed=3)
-    draws = P.sample_draws(CFG, B, torch.Generator().manual_seed(2))
+    batch = P.synthetic_batch(CFG, B, seed=3, device="cpu")
+    draws = P.sample_draws(CFG, B, torch.Generator().manual_seed(2),
+                           device="cpu")
     out = {}
     threads = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -45,7 +45,7 @@ def _state_dicts(seed=42):
     as in test_e2e_parity (x40 on net.3: a few-pixel motion, so the
     z-scaled depth bins are not degenerate)."""
     rng = np.random.default_rng(seed)
-    models = build_models(CFG, generator=torch.Generator().manual_seed(seed))
+    models = build_models(CFG, "cpu", torch.Generator().manual_seed(seed))
     states = {}
     for name, m in models.items():
         sd = {k: v.clone() for k, v in m.state_dict().items()}
@@ -65,7 +65,7 @@ def _state_dicts(seed=42):
 @pytest.fixture(scope="module")
 def setup():
     states = _state_dicts()
-    models = build_models(CFG)
+    models = build_models(CFG, "cpu")
     for name, m in models.items():
         m.load_state_dict(states[name])
     variables = {name: TI.convert_state_dict(

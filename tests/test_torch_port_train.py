@@ -94,7 +94,7 @@ def jax_side():
 
 
 def _port_models(states):
-    models = build_models(CFG)
+    models = build_models(CFG, "cpu")
     for name, m in models.items():
         m.load_state_dict(states[name])
     return models

@@ -94,7 +94,7 @@ def test_trainer_two_epochs_and_checkpoints(kitti_tree, trained):
     with open(os.path.join(root / "log", "t", "profile", "trace.json")) as f:
         assert json.load(f)["traceEvents"]
     # a checkpoint folder is a reference .pth folder
-    fresh = build_models(trained.cfg)
+    fresh = build_models(trained.cfg, "cpu")
     assert sorted(W.load_reference_folder(
         os.path.join(models_dir, "last"), fresh)) == sorted(fresh)
     for name, model in fresh.items():
