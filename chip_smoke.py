@@ -695,10 +695,10 @@ def phase_sweep_warp(card):
     float32 twice, for the run-to-run difference) and on KITTI-speed
     coordinates, against the plain version's autograd. Times, in bfloat16:
     the forward (bare launch), the whole backward (every launch
-    SweepWarp.backward makes, on preallocated tensors) on both coordinate
-    sets, the global-atomic kernel's whole backward (zero, kernel, cast) as
-    the yardstick, the plain versions and the library calls. Returns the
-    two kernels' summary records and ``gen``, for phase 7's image warp."""
+    SweepWarp.backward makes, on preallocated tensors: zero the float32
+    buffer, the kernel, the cast) on both coordinate sets, the plain
+    versions and the library calls. Returns the two kernels' summary
+    records and ``gen``, for phase 7's image warp."""
     import torch
     import torch.nn.functional as F
     from movedepth_tpu_torch.ops import sweep_warp as SW
@@ -722,11 +722,6 @@ def phase_sweep_warp(card):
     _within("sweep_warp bfloat16 forward", SW.sweep_warp(src16, sx, sy),
             SW.sweep_warp_reference(src16.float(), sx, sy), bf16=True)
 
-    plan = SW.bwd_plan(src.shape, torch.bfloat16, r)
-    if plan is None:
-        raise RuntimeError("the train shape takes the global-atomic kernel")
-    log(f"[train-kernel] sweep_warp backward plan at {s}: {plan}")
-    SW.warp_bwd_launches = SW.warp_bwd_global_launches = 0
     err_bwd, runs = 0.0, []
     for tag, (x, y) in coords.items():
         for i in range(2 if tag == "phase 7" else 1):
@@ -737,12 +732,8 @@ def phase_sweep_warp(card):
                 runs.append(got)
         _dsrc_check(f"sweep_warp bfloat16 dsrc, {tag}", src, x, y, g, True)
     log(f"[train-kernel] sweep_warp dsrc run-to-run max difference "
-        f"{(runs[0] - runs[1]).abs().max().item():.3e} (float32 "
-        f"shared-memory atomics; max|dsrc| {runs[0].abs().max().item():.3e})")
-    if SW.warp_bwd_global_launches or SW.warp_bwd_launches != 5:
-        raise RuntimeError("the checks did not all take the cluster kernel: "
-                           f"{SW.warp_bwd_launches} cluster, "
-                           f"{SW.warp_bwd_global_launches} global launches")
+        f"{(runs[0] - runs[1]).abs().max().item():.3e} (float32 atomics; "
+        f"max|dsrc| {runs[0].abs().max().item():.3e})")
 
     # bfloat16, the train path's dtype, for the times
     lib = SW.warp_library()
@@ -752,20 +743,16 @@ def phase_sweep_warp(card):
     dsrc32 = torch.zeros((b, r, w, c), device=dev)
     ms_fwd = device_ms(_bare(lib.sweep_warp_fwd_bf16, src16, sx, sy, out16,
                              b, r, w, d, r, c))
-    ms_bwd, ms_global = {}, {}
+    ms_bwd = {}
     for tag, (x, y) in coords.items():
-        ms_bwd[tag] = device_ms(_bare(
-            lib.sweep_warp_bwd_bf16, g16, x, y, dsrc16, b, r, w, d, r, c,
-            plan["cs"], plan["cluster"], plan["rows"], plan["hrows"],
-            plan["halo"]))
-        launch = _bare(lib.sweep_warp_bwd_global_bf16, g16, x, y, dsrc32, b,
-                       r, w, d, r, c)
+        launch = _bare(lib.sweep_warp_bwd_bf16, g16, x, y, dsrc32, b, r, w, d,
+                       r, c)
 
-        def whole_global(launch=launch):
+        def whole(launch=launch):
             dsrc32.zero_()
             launch()
             dsrc16.copy_(dsrc32)
-        ms_global[tag] = device_ms(whole_global)
+        ms_bwd[tag] = device_ms(whole)
     call_fwd = cuda_ms(lambda: SW.sweep_warp(src16, sx, sy))
     plain_fwd = plain_ms(lambda: SW.sweep_warp_reference(src16, sx, sy))
     leaf16 = src16.clone().requires_grad_()
@@ -785,10 +772,8 @@ def phase_sweep_warp(card):
     work_bwd = sweep_warp_work(b, r, w, c, d, r, 2, True)
     log(f"[train-kernel] sweep_warp bfloat16 at {s}, device ms: forward "
         f"kernel {ms_fwd:.4f}, plain {plain_fwd:.4f}, grid_sample "
-        f"{lib_fwd:.4f}; whole backward (1 cluster launch) "
+        f"{lib_fwd:.4f}; whole backward (zero, kernel, cast) "
         + ", ".join(f"{ms:.4f} on {k} coordinates" for k, ms in ms_bwd.items())
-        + "; global-atomic backward (zero, kernel, cast) "
-        + ", ".join(f"{ms:.4f} on {k}" for k, ms in ms_global.items())
         + f"; bound {bound(*work_bwd)['bound_ms']:.4f}; plain "
         f"{plain_bwd:.4f}, grid_sampler_2d_backward {lib_bwd:.4f}; one "
         f"wrapper call {call_fwd:.4f} forward, {call_bwd:.4f} backward; "
@@ -801,7 +786,6 @@ def phase_sweep_warp(card):
                   "movedepth_tpu/ops/pallas/sweep_warp.py:618", err_bwd,
                   ms_bwd["phase 7"], plain_bwd, work_bwd, lib_bwd, call_bwd)
     bwd["ms_kitti_speed"] = ms_bwd["KITTI speed"]
-    bwd["global_ms"] = ms_global["phase 7"]
     return [fwd, bwd], gen
 
 
@@ -1034,7 +1018,7 @@ def _launch_counts():
 def _zero_launch_counts():
     from movedepth_tpu_torch.ops import image_warp as IW
     from movedepth_tpu_torch.ops import sweep_warp as SW
-    SW.warp_launches = SW.warp_bwd_launches = SW.warp_bwd_global_launches = 0
+    SW.warp_launches = SW.warp_bwd_launches = 0
     IW.launches = IW.bwd_launches = 0
     IW.l1_launches = IW.l1_bwd_launches = 0
 
@@ -1118,10 +1102,9 @@ def phase_train_path():
     torch.cuda.synchronize()
     launches = _launch_counts()
     log(f"[train] kernel launches of one card train_step: {launches}")
-    if list(launches.values()) != [1, 1, 0, 2, 2, 0, 0]:
-        raise RuntimeError("expected sweep_warp 1 forward + 1 backward (the "
-                           "cluster kernel) and warp_images_border 2 "
-                           "forward + 2 backward")
+    if list(launches.values()) != [1, 1, 2, 2, 0, 0]:
+        raise RuntimeError("expected sweep_warp 1 forward + 1 backward and "
+                           "warp_images_border 2 forward + 2 backward")
     spreads = _grad_rel(one_thread, cpu_models)
     _card_vs_cpu("train", got, want, models, cpu_models, spreads, threads)
 
@@ -1166,10 +1149,10 @@ def phase_train_path_l1(init, batch, draws, spreads, threads, got_off):
     launches = _launch_counts()
     log(f"[train-l1] kernel launches of one card train_step with kernel_l1: "
         f"{launches}")
-    if list(launches.values()) != [1, 1, 0, 0, 0, 2, 2]:
-        raise RuntimeError("expected sweep_warp 1 + 1 (the cluster kernel), "
-                           "warp_images_border 0 + 0 and "
-                           "warp_images_border_l1 2 forward + 2 backward")
+    if list(launches.values()) != [1, 1, 0, 0, 2, 2]:
+        raise RuntimeError("expected sweep_warp 1 + 1, warp_images_border "
+                           "0 + 0 and warp_images_border_l1 2 forward + 2 "
+                           "backward")
     _card_vs_cpu("train-l1", got, want, models, cpu_models, spreads, threads)
     worst = max(abs(got[k].item() - got_off[k].item()) / abs(got_off[k].item())
                 for k in got_off)
@@ -1323,7 +1306,6 @@ def phase_train_cli(l1_ms, card):
         step = _check_folders(models_dir, ("weights_0", "weights_1", "last"),
                               ALL_MODELS)
         want = {"sweep_warp": 8, "sweep_warp_bwd": 4,
-                "sweep_warp_bwd_global": 0,
                 "warp_images_border": 0, "warp_images_border_coord_bwd": 0,
                 "warp_images_border_l1": 16,
                 "warp_images_border_l1_coord_bwd": 8}
@@ -1402,38 +1384,11 @@ def phase_variants():
     return rec
 
 
-def _parent_corr_library(parent):
-    """The warp-correlate kernel of an earlier tree unpacked at ``parent``
-    (its csrc/sweep_warp_corr.cu and headers), built as the port builds
-    its own; None when ``parent`` holds none."""
-    import ctypes
-    from movedepth_tpu_torch import native
-    from movedepth_tpu_torch.ops import sweep_warp as SW
-    cu = os.path.join(parent, "movedepth_tpu_torch", "csrc",
-                      "sweep_warp_corr.cu")
-    if not os.path.isfile(cu):
-        return None
-    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = str(native.BUILD_DIR / "parent_sweep_warp_corr.so")
-    subprocess.run([native.nvcc(), *native.NVCC_FLAGS, "-o", so, cu],
-                   check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(so)
-    for fn, (argtypes, restype) in SW._SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
-
-
-def phase_design_steps(card, parent=None):
-    """DESIGN STEPS (timing only). Row 3, the sweep warp's source gradient
-    at the train shape in bfloat16, as the whole backward on preallocated
-    tensors, on phase 7's and on KITTI-speed coordinates: the global-atomic
-    kernel (zero, kernel, cast), its register run-merge of planes that
-    share a tap base, and the cluster kernel by channel slice and halo
-    rows, without and with the run-merge. Row 1,
-    the warp-correlate kernel at batch 128, 16 and 1: the earlier tree's
-    kernel (``parent``) and the new one with 1 to 16 planes a thread. Each
-    step is checked against the plain version first."""
+def phase_load_ahead_steps(card):
+    """DESIGN STEPS (timing only): row 3's whole backward at the train shape
+    with 1, 2, 4 or 8 planes' loads in flight a thread, on phase 7's and
+    KITTI-speed coordinates; row 1 at batch 128, 16 and 1 without and with
+    the coordinates of its 8 planes loaded first. Each checked first."""
     import torch
     from movedepth_tpu_torch import profile_kernel_variants as PKV
     from movedepth_tpu_torch.ops import sweep_warp as SW
@@ -1452,60 +1407,25 @@ def phase_design_steps(card, parent=None):
     lib = SW.warp_library()
     dsrc16 = torch.empty((b, r, w, c), dtype=torch.bfloat16, device=dev)
     dsrc32 = torch.zeros((b, r, w, c), device=dev)
-    args = (b, r, w, d, r, c)
+    for ahead in (1, 2, 4, 8):
+        row = {}
+        for tag, (x, y) in coords.items():
+            launch = _bare(lambda *a: lib.sweep_warp_bwd_ahead_bf16(ahead, *a),
+                           g16, x, y, dsrc32, b, r, w, d, r, c)
 
-    def with_buffer(fn, x, y):
-        launch = _bare(fn, g16, x, y, dsrc32, *args)
+            def whole(launch=launch):
+                dsrc32.zero_()
+                launch()
+                dsrc16.copy_(dsrc32)
+            whole()
+            leaf = src.float().requires_grad_()
+            want = torch.autograd.grad(SW.sweep_warp_reference(leaf, x, y),
+                                       leaf, g16.float())[0]
+            _within(f"step ahead{ahead}, {tag}", dsrc16, want, bf16=True)
+            row[tag] = device_ms(whole)
+        log(f"[steps] row 3 ahead{ahead}: " + ", ".join(
+            f"{ms:.4f} ms on {tag}" for tag, ms in row.items()) + f"; {card}")
 
-        def whole():
-            dsrc32.zero_()
-            launch()
-            dsrc16.copy_(dsrc32)
-        return whole
-
-    def cluster(fn, cs, halo, x, y):
-        plan = SW.bwd_plan(src.shape, torch.bfloat16, r, cs=cs, halo=halo)
-        return _bare(fn, g16, x, y, dsrc16, *args, plan["cs"],
-                     plan["cluster"], plan["rows"], plan["hrows"],
-                     plan["halo"])
-
-    steps = {
-        "global": lambda x, y: with_buffer(lib.sweep_warp_bwd_global_bf16,
-                                           x, y),
-    }
-    for blocks in (1, 3, 4):
-        steps[f"merge_minblocks{blocks}"] = (
-            lambda x, y, blocks=blocks: with_buffer(
-                lambda *a: lib.sweep_warp_bwd_merge_bf16(blocks, *a), x, y))
-    kinds = {0: "cluster", 1: "merge_cluster", 2: "cluster_red",
-             3: "merge_cluster_red"}
-    for step, cs, halo in ((0, 16, 0), (0, 32, 0), (0, 8, 0), (0, 16, 2),
-                           (0, 8, 2), (0, 8, 6), (1, 16, 2), (1, 8, 2),
-                           (2, 16, 2), (2, 8, 2), (2, 8, 6), (3, 16, 2),
-                           (3, 8, 2), (3, 8, 6)):
-        steps[f"{kinds[step]}_cs{cs}_h{halo}"] = (
-            lambda x, y, step=step, cs=cs, halo=halo: cluster(
-                lambda *a: lib.sweep_warp_bwd_step_bf16(step, *a), cs, halo,
-                x, y))
-    table = {}
-    for tag, (x, y) in coords.items():
-        leaf = src.float().requires_grad_()
-        want = torch.autograd.grad(SW.sweep_warp_reference(leaf, x, y), leaf,
-                                   g16.float())[0]
-        for name, make in steps.items():
-            fn = make(x, y)
-            fn()
-            torch.cuda.synchronize()
-            _within(f"step {name}, {tag}", dsrc16, want, bf16=True)
-            table.setdefault(name, {})[tag] = device_ms(fn)
-    for name, row in table.items():
-        log(f"[steps] row 3 {name}: " + ", ".join(
-            f"{ms:.4f} ms on {tag}" for tag, ms in row.items())
-            + f"; {card}")
-
-    # row 1
-    lines = []
-    parent_lib = _parent_corr_library(parent) if parent else None
     vlib = PKV.variant_library()
     gen = torch.Generator().manual_seed(0)
     for nb in (128, 16, 1):
@@ -1516,35 +1436,25 @@ def phase_design_steps(card, parent=None):
         want32 = SW.sweep_warp_corr_reference(src_c.float(), ref_c.float(), x,
                                               y, 16)
         times = {}
-        if parent_lib is not None:
-            times["parent"] = device_ms(_bare(
-                parent_lib.sweep_warp_corr_bf16, src_c, ref_c, x, y, out, nb,
-                r, w, d, r, c, 16))
-            _within(f"row 1 step parent, batch {nb}", out, want32, bf16=True)
-        for planes in (4, 8, 16, 108, 308, 1004, 1008, 1016, 2008):
-            name = (f"planes{planes % 100}_rows{planes // 100 % 10 + 1}"
-                    f"_chunks{2 ** (planes // 1000)}")
-            times[name] = device_ms(_bare(
-                vlib.sweep_warp_corr_planes_bf16, planes, src_c, ref_c, x, y,
-                out, nb, r, w, d, r, c, 16))
-            _within(f"row 1 step {name}, batch {nb}", out, want32, bf16=True)
+        for preload in (0, 1):
+            times[f"preload{preload}"] = device_ms(_bare(
+                lambda *a: vlib.sweep_warp_corr_preload_bf16(preload, *a),
+                src_c, ref_c, x, y, out, nb, r, w, d, r, c, 16))
+            _within(f"row 1 step preload{preload}, batch {nb}", out, want32,
+                    bf16=True)
         del want32
-        lines.append(f"[steps] row 1 batch {nb}: " + ", ".join(
+        log(f"[steps] row 1 batch {nb}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in times.items()) + f"; {card}")
-    for line in lines:
-        log(line)
 
 
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
         return
-    if sys.argv[1:2] == ["--steps"]:  # the design steps alone
+    if sys.argv[1:] == ["--steps"]:  # the load-ahead design steps alone
         card = phase_device()
         phase_build()
-        phase_kernel(card)
-        phase_sweep_warp(card)
-        phase_design_steps(card, *sys.argv[2:3])
+        phase_load_ahead_steps(card)
         phase_variants()
         log(card)
         return

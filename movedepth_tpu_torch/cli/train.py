@@ -29,7 +29,6 @@ def kernel_launches() -> dict:
     """The CUDA kernel launches of this process so far, by kernel."""
     return {"sweep_warp": sweep_warp.warp_launches,
             "sweep_warp_bwd": sweep_warp.warp_bwd_launches,
-            "sweep_warp_bwd_global": sweep_warp.warp_bwd_global_launches,
             "warp_images_border": image_warp.launches,
             "warp_images_border_coord_bwd": image_warp.bwd_launches,
             "warp_images_border_l1": image_warp.l1_launches,

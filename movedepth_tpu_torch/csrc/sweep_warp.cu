@@ -8,8 +8,7 @@
 //   * _warp_rows_bwd_impl (the custom VJP, _warp_bwd_kernel):
 //       dsrc[b,r,q,:] = sum over (d,h,x) and taps landing on (r,q) of
 //                       w_tap * g[b,d,h,x,:]
-//     in float32, rounded once to src's dtype. The coordinates get no
-//     gradient.
+//     in float32. The coordinates get no gradient.
 // Coordinates are clamped to [-2, W+1] / [-2, R+1] before the floor, as
 // the TPU kernels do (bilinear.cuh).
 //
@@ -22,41 +21,32 @@
 // shape (B=12, D=16, H=R=48, W=160, C=32, bfloat16).
 //
 // Source gradient. The TPU kernel keeps a batch element's whole dsrc in
-// VMEM and adds to it grid step by grid step. Hopper's counterpart is a
-// thread-block cluster of 8 CTAs that holds one (batch element, channel
-// slice) of dsrc in float32 shared memory: CTA r holds source rows band r
-// and walks the points whose reference row lies in band r, over all D
-// planes. Each thread owns one point and adds w_tap * g into the CTA that
-// owns the tap's source row with shared-memory atomics (distributed shared
-// memory, cluster.map_shared_rank, for a band of another CTA; with KITTI
-// motion most taps stay in their own band). A lane adds the point's
-// channels in an order rotated by its lane index, so the 32 adds of a warp
-// fall in distinct banks whatever pixels the taps hit. After
-// cluster.sync() each CTA writes its band once, in src's dtype: no global
-// atomics, no zeroed float32 buffer and no cast launch. Every in-frame tap
-// lands in the cluster's shared memory, so the design holds for any
-// coordinates. The summation order, and so the last bits of dsrc, vary
-// from run to run.
+// VMEM and adds to it grid step by grid step; a GPU has no such memory
+// for 12 batch elements, so the transposed warp scatters with atomics. One
+// thread owns a 16-byte channel chunk of one reference pixel (b, h, x) and
+// walks its D planes. Neighbouring planes of a pixel often sample the
+// same four source pixels (the epipolar segment moves by less than a pixel
+// a plane at KITTI motion), so the thread sums w_tap * g in registers
+// while the tap base (x0, y0) stays the same and adds the run to dsrc
+// once, with 16-byte float4 atomicAdd (sm_90) into the zeroed float32
+// (B,R,W,C) buffer that the wrapper allocates and casts afterwards. The
+// summation order, and so the last bits of dsrc, vary from run to run.
 //
-// Planes that no cluster can hold take the global-atomic kernel: one
-// thread a 16-byte chunk of a point, float4 atomicAdd (sm_90) into a
-// zeroed float32 (B,R,W,C) buffer that the wrapper allocates and casts.
-//
-// What bounds the source gradient: the bound is HBM traffic, the 94 MB
-// gradient read once (0.028 ms at 3.35 TB/s); the cluster kernel issues 4*C
-// shared-memory float adds a point (189 M at the train shape), and their
-// rate on the SMs' shared-memory pipes is what holds it above the bound.
-
-#include <cooperative_groups.h>
+// What bounds the source gradient: the rate at which the L2 takes the
+// float4 reductions, not HBM (the bound is the 94 MB gradient read once,
+// 0.028 ms at 3.35 TB/s). Without the run-merge a point costs 4 taps x
+// C/4 float4 reductions (47 M at the train shape); the merge cuts them by
+// the run length, which shrinks as the motion between frames grows.
+// Thread-block clusters that hold dsrc in shared memory (distributed
+// shared memory for other CTAs' rows, halo rows, native red.shared adds)
+// were measured slower at every setting: shared-memory float adds under
+// this contention run far below the L2's float4 reductions.
 
 #include "bilinear.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kClusterThreads = 512;
 
 // src (B,R,W,C) T, sx/sy (B,D,H,W) f32 -> out (B,D,H,W,C) T.
 template <typename T>
@@ -90,53 +80,16 @@ __global__ void __launch_bounds__(kThreads)
   mdt::store16(out + p * C + c0, acc);
 }
 
-// The global-atomic source gradient: g (B,D,H,W,C) T, sx/sy (B,D,H,W) f32
-// -> dsrc (B,R,W,C) f32 (pre-zeroed).
-template <typename T>
+// g (B,D,H,W,C) T, sx/sy (B,D,H,W) f32 -> dsrc (B,R,W,C) f32 (pre-zeroed);
+// one thread a (b, h, x, 16-byte chunk), over the D planes, kAhead planes'
+// coordinates and gradient loaded at a time.
+template <typename T, int kAhead>
 __global__ void __launch_bounds__(kThreads)
-    sweep_warp_bwd_global_kernel(const T* __restrict__ g,
-                                 const float* __restrict__ sx,
-                                 const float* __restrict__ sy,
-                                 float* __restrict__ dsrc, long long n, int R,
-                                 int W, int DHW, int C) {
-  constexpr int V = mdt::Vec<T>::N;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int chunks = C / V;
-  const long long p = i / chunks;
-  const int c0 = static_cast<int>(i % chunks) * V;
-  const long long b = p / DHW;
-  const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
-  if (!(t.valid[0] || t.valid[1] || t.valid[2] || t.valid[3])) return;
-
-  float gv[V];
-  mdt::load16(g + p * C + c0, gv);
-  float* __restrict__ d = dsrc + b * R * W * C + c0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (!t.valid[k]) continue;
-    float* __restrict__ q = d + mdt::tap_offset(t, k, W) * C;
-    // Hopper adds a 16-byte float4 atomically: one instruction per 4
-    // channels (q is 16-byte aligned: C and c0 are multiples of 4)
-#pragma unroll
-    for (int j = 0; j < V; j += 4)
-      atomicAdd(reinterpret_cast<float4*>(q + j),
-                make_float4(t.w[k] * gv[j], t.w[k] * gv[j + 1],
-                            t.w[k] * gv[j + 2], t.w[k] * gv[j + 3]));
-  }
-}
-
-// DESIGN STEP (timing only): the global-atomic kernel with one thread a
-// (b, h, x, chunk) walking the D planes, merging in registers the planes
-// whose taps share a base pixel and adding once per run.
-template <typename T, int kMinBlocks = 1>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    sweep_warp_bwd_merge_kernel(const T* __restrict__ g,
-                                const float* __restrict__ sx,
-                                const float* __restrict__ sy,
-                                float* __restrict__ dsrc, long long n, int R,
-                                int W, int D, int H, int C) {
+    sweep_warp_bwd_kernel(const T* __restrict__ g,
+                          const float* __restrict__ sx,
+                          const float* __restrict__ sy,
+                          float* __restrict__ dsrc, long long n, int R, int W,
+                          int D, int H, int C) {
   constexpr int V = mdt::Vec<T>::N;
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -149,8 +102,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int h = static_cast<int>(bh % H);
   const long long b = bh / H;
   float* __restrict__ dst = dsrc + b * R * W * C + c0;
-  float acc[4][V];
-  int bx = 0, by = -100;  // no run yet
+  float acc[4][V];  // the run's sums at the taps of base (bx, by)
+  int bx = 0, by = -100;  // no run yet (a clamped y0 is at least -2)
   auto flush = [&]() {
     const bool vx0 = bx >= 0 && bx < W, vx1 = bx + 1 >= 0 && bx + 1 < W;
     const bool vy0 = by >= 0 && by < R, vy1 = by + 1 >= 0 && by + 1 < R;
@@ -167,231 +120,38 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                               acc[k][j + 3]));
     }
   };
-  for (int d = 0; d < D; ++d) {
-    const long long p = ((b * D + d) * H + h) * W + x;
-    const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
-    float gv[V];
-    mdt::load16(g + p * C + c0, gv);
-    if (t.x0 != bx || t.y0 != by) {
-      if (by != -100) flush();
-      bx = t.x0;
-      by = t.y0;
+  for (int d0 = 0; d0 < D; d0 += kAhead) {
+    // every load of the next kAhead planes in flight at once (the last
+    // plane's address stands in past D)
+    float xs[kAhead], ys[kAhead], gv[kAhead][V];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int j = 0; j < V; ++j) acc[k][j] = 0.0f;
+    for (int u = 0; u < kAhead; ++u) {
+      const long long p = ((b * D + min(d0 + u, D - 1)) * H + h) * W + x;
+      xs[u] = sx[p];
+      ys[u] = sy[p];
+      mdt::load16(g + p * C + c0, gv[u]);
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int j = 0; j < V; ++j) acc[k][j] = fmaf(t.w[k], gv[j], acc[k][j]);
-  }
-  if (by != -100) flush();
-}
-
-// a[j] <- a[(j + s) % N] for 0 <= s < N, N a power of two: log2(N) stages
-// of selects, no indexing of registers by a runtime value.
-template <int N>
-__device__ __forceinline__ void rotate(float (&a)[N], int s) {
-#pragma unroll
-  for (int bit = 1; bit < N; bit <<= 1) {
-    const bool on = (s & bit) != 0;
-    float t[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) t[j] = on ? a[(j + bit) & (N - 1)] : a[j];
-#pragma unroll
-    for (int j = 0; j < N; ++j) a[j] = t[j];
-  }
-}
-
-// Add w * v[j] into channel (j + rot) % CS of the CS floats of (row, col):
-// in this CTA's window if the row lies in it, else in the owner's window
-// through distributed shared memory. kPtx: red.shared(::cluster).add.f32
-// on 32-bit shared addresses instead of atomicAdd on generic pointers.
-template <int CS, bool kPtx>
-__device__ __forceinline__ void add_tap(const cg::cluster_group& cluster,
-                                        float* win, int w_lo, int wrows,
-                                        int rows, int halo, int W, int row,
-                                        int col, float w,
-                                        const float (&v)[CS], int rot) {
-  const bool local =
-      static_cast<unsigned>(row - w_lo) < static_cast<unsigned>(wrows);
-  const int owner = local ? 0 : row / rows;
-  const int off = local ? ((row - w_lo) * W + col) * CS
-                        : ((row - (owner * rows - halo)) * W + col) * CS;
-  if constexpr (kPtx) {
-    const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(win)) +
-                          4u * static_cast<unsigned>(off);
-    if (local) {
-#pragma unroll
-      for (int j = 0; j < CS; ++j)
-        asm volatile("red.shared.add.f32 [%0], %1;" ::"r"(
-                         base + 4u * ((j + rot) & (CS - 1))),
-                     "f"(w * v[j])
-                     : "memory");
-    } else {
-      unsigned remote;
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-                   : "=r"(remote)
-                   : "r"(base), "r"(owner));
-#pragma unroll
-      for (int j = 0; j < CS; ++j)
-        asm volatile("red.shared::cluster.add.f32 [%0], %1;" ::"r"(
-                         remote + 4u * ((j + rot) & (CS - 1))),
-                     "f"(w * v[j])
-                     : "memory");
-    }
-  } else {
-    float* dst = (local ? win : cluster.map_shared_rank(win, owner)) + off;
-#pragma unroll
-    for (int j = 0; j < CS; ++j)
-      atomicAdd(dst + ((j + rot) & (CS - 1)), w * v[j]);
-  }
-}
-
-// The cluster source gradient: g (B,D,H,W,C) T, sx/sy (B,D,H,W) f32 ->
-// dsrc (B,R,W,C) T. Grid (cluster size, C / CS, B), clusters along x. CTA
-// `rank` owns source rows [rank*rows, (rank+1)*rows) of channels
-// [blockIdx.y*CS, +CS) and holds them, with `halo` rows on either side, in
-// float32 shared memory; it walks the reference rows [rank*hrows,
-// (rank+1)*hrows). A tap inside the window adds locally, one beyond it into
-// the owner's window through distributed shared memory. At the end each
-// CTA adds its neighbours' halo rows over its own rows and writes them.
-// kMerge: a thread walks the D planes of one (h, x) and merges in
-// registers the planes whose taps share a base pixel.
-template <typename T, int CS, bool kMerge, bool kPtx>
-__global__ void __launch_bounds__(kClusterThreads)
-    sweep_warp_bwd_cluster_kernel(const T* __restrict__ g,
-                                  const float* __restrict__ sx,
-                                  const float* __restrict__ sy,
-                                  T* __restrict__ dsrc, int R, int W, int D,
-                                  int H, int C, int rows, int hrows,
-                                  int halo) {
-  constexpr int V = mdt::Vec<T>::N;
-  static_assert(CS % V == 0 && 32 % CS == 0, "CS: V, 2V, ... up to 32");
-  extern __shared__ float4 smem[];
-  float* win = reinterpret_cast<float*>(smem);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int n = static_cast<int>(cluster.num_blocks());
-  const long long b = blockIdx.z;
-  const int c0 = blockIdx.y * CS;
-  const int wrows = rows + 2 * halo;
-  const int w_lo = rank * rows - halo;  // source row of window row 0
-
-  for (int i = threadIdx.x; i < wrows * W * CS / 4; i += blockDim.x)
-    smem[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  cluster.sync();  // every window is zero before any CTA adds into it
-
-  const int rot = threadIdx.x & (CS - 1);
-  const int h_lo = rank * hrows;
-  const int h_cnt = max(0, min(H, h_lo + hrows) - h_lo);
-  const long long plane = static_cast<long long>(H) * W;
-  if constexpr (kMerge) {
-    for (int i = threadIdx.x; i < h_cnt * W; i += blockDim.x) {
-      const long long p0 = (b * D * H + h_lo) * W + i;  // plane 0
-      float acc[4][CS];
-      int bx = 0, by = -100;  // no run yet
-      for (int d = 0; d <= D; ++d) {
-        mdt::Taps t;
-        float gv[CS];
-        if (d < D) {
-          const long long p = p0 + d * plane;
-          t = mdt::zeros_taps(sx[p], sy[p], W, R);
-#pragma unroll
-          for (int j = 0; j < CS; j += V)
-            mdt::load16(g + p * C + c0 + j, gv + j);
-          rotate<CS>(gv, rot);  // gv[j] is channel (j + rot) % CS
-        }
-        if (d == D || t.x0 != bx || t.y0 != by) {
-          if (by != -100) {  // add the run
-            const bool vx0 = bx >= 0 && bx < W;
-            const bool vx1 = bx + 1 >= 0 && bx + 1 < W;
-            const bool vy0 = by >= 0 && by < R;
-            const bool vy1 = by + 1 >= 0 && by + 1 < R;
-            if (vy0 && vx0)
-              add_tap<CS, kPtx>(cluster, win, w_lo, wrows, rows, halo, W,
-                                by, bx, 1.0f, acc[0], rot);
-            if (vy0 && vx1)
-              add_tap<CS, kPtx>(cluster, win, w_lo, wrows, rows, halo, W,
-                                by, bx + 1, 1.0f, acc[1], rot);
-            if (vy1 && vx0)
-              add_tap<CS, kPtx>(cluster, win, w_lo, wrows, rows, halo, W,
-                                by + 1, bx, 1.0f, acc[2], rot);
-            if (vy1 && vx1)
-              add_tap<CS, kPtx>(cluster, win, w_lo, wrows, rows, halo, W,
-                                by + 1, bx + 1, 1.0f, acc[3], rot);
-          }
-          if (d == D) break;
-          bx = t.x0;
-          by = t.y0;
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int j = 0; j < CS; ++j) acc[k][j] = 0.0f;
-        }
+    for (int u = 0; u < kAhead; ++u) {
+      if (d0 + u >= D) break;
+      const mdt::Taps t = mdt::zeros_taps(xs[u], ys[u], W, R);
+      if (t.x0 != bx || t.y0 != by) {
+        if (by != -100) flush();
+        bx = t.x0;
+        by = t.y0;
 #pragma unroll
         for (int k = 0; k < 4; ++k)
 #pragma unroll
-          for (int j = 0; j < CS; ++j)
-            acc[k][j] = fmaf(t.w[k], gv[j], acc[k][j]);
+          for (int j = 0; j < V; ++j) acc[k][j] = 0.0f;
       }
-    }
-  } else {
-    const int npts = D * h_cnt * W;
-    for (int i = threadIdx.x; i < npts; i += blockDim.x) {
-      const int x = i % W;
-      const int dh = i / W;
-      const int hl = dh % h_cnt;
-      const int d = dh / h_cnt;
-      const long long p = ((b * D + d) * H + h_lo + hl) * W + x;
-      const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
-      if (!(t.valid[0] || t.valid[1] || t.valid[2] || t.valid[3])) continue;
-      float gv[CS];
-#pragma unroll
-      for (int j = 0; j < CS; j += V) mdt::load16(g + p * C + c0 + j, gv + j);
-      rotate<CS>(gv, rot);  // gv[j] is now channel (j + rot) % CS
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (t.valid[k])
-          add_tap<CS, kPtx>(cluster, win, w_lo, wrows, rows, halo, W,
-                            t.y0 + (k >> 1), t.x0 + (k & 1), t.w[k], gv,
-                            rot);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          acc[k][j] = fmaf(t.w[k], gv[u][j], acc[k][j]);
     }
   }
-  cluster.sync();  // every add has landed
-
-  // own rows: this window's core plus the neighbours' halos over them
-  const int r_lo = rank * rows;
-  const int r_cnt = max(0, min(R, r_lo + rows) - r_lo);
-  const int reach = halo > 0 ? (halo + rows - 1) / rows : 0;
-  constexpr int kChunks = CS / V;
-  T* __restrict__ o = dsrc + (b * R + r_lo) * W * C + c0;
-  for (int i = threadIdx.x; i < r_cnt * W * kChunks; i += blockDim.x) {
-    const int px = i / kChunks;  // pixel of the band, row-major
-    const int j = (i % kChunks) * V;
-    const int row = r_lo + px / W;
-    const int col = px % W;
-    float v[V];
-#pragma unroll
-    for (int u = 0; u < V; ++u) v[u] = 0.0f;
-    for (int q = max(0, rank - reach); q <= min(n - 1, rank + reach); ++q) {
-      const int wr = row - (q * rows - halo);
-      if (wr < 0 || wr >= wrows) continue;
-      const float4* src4 = reinterpret_cast<const float4*>(
-          q == rank ? win : cluster.map_shared_rank(win, q));
-#pragma unroll
-      for (int u = 0; u < V; u += 4) {
-        const float4 f = src4[((wr * W + col) * CS + j + u) / 4];
-        v[u] += f.x;
-        v[u + 1] += f.y;
-        v[u + 2] += f.z;
-        v[u + 3] += f.w;
-      }
-    }
-    mdt::store16(o + static_cast<long long>(px) * C + j, v);
-  }
-  cluster.sync();  // no window is released while a neighbour reads it
+  if (by != -100) flush();
 }
 
 template <typename T>
@@ -409,120 +169,19 @@ int launch_fwd(const void* src, const void* sx, const void* sy, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd_global(const void* g, const void* sx, const void* sy,
-                      void* dsrc, int B, int R, int W, int D, int H, int C,
-                      cudaStream_t stream) {
-  if (C <= 0 || C % mdt::Vec<T>::N) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = static_cast<long long>(B) * D * H * W * (C / mdt::Vec<T>::N);
-  if (n == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
-  sweep_warp_bwd_global_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const float*>(sx),
-      static_cast<const float*>(sy), static_cast<float*>(dsrc), n, R, W,
-      D * H * W, C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int kMinBlocks = 1>
-int launch_bwd_merge(const void* g, const void* sx, const void* sy,
-                     void* dsrc, int B, int R, int W, int D, int H, int C,
-                     cudaStream_t stream) {
+template <typename T, int kAhead = 4>
+int launch_bwd(const void* g, const void* sx, const void* sy, void* dsrc,
+               int B, int R, int W, int D, int H, int C,
+               cudaStream_t stream) {
   if (C <= 0 || C % mdt::Vec<T>::N) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(B) * H * W * (C / mdt::Vec<T>::N);
   if (n == 0 || D == 0) return 0;
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
-  sweep_warp_bwd_merge_kernel<T, kMinBlocks><<<grid, kThreads, 0, stream>>>(
+  sweep_warp_bwd_kernel<T, kAhead><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(g), static_cast<const float*>(sx),
       static_cast<const float*>(sy), static_cast<float*>(dsrc), n, R, W, D, H,
       C);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int CS, bool kMerge, bool kPtx>
-int launch_cluster_cs(const void* g, const void* sx, const void* sy,
-                      void* dsrc, int B, int R, int W, int D, int H, int C,
-                      int cluster, int rows, int hrows, int halo,
-                      cudaStream_t stream) {
-  auto kernel = sweep_warp_bwd_cluster_kernel<T, CS, kMerge, kPtx>;
-  const int smem =
-      (rows + 2 * halo) * W * CS * static_cast<int>(sizeof(float));
-  // set once per instantiation to the largest request so far
-  static int smem_set = 0;
-  static bool nonportable = false;
-  cudaError_t e = cudaSuccess;
-  if (smem > smem_set) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = smem;
-  }
-  if (cluster > 8 && !nonportable) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    nonportable = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, C / CS, B);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(g),
-                         static_cast<const float*>(sx),
-                         static_cast<const float*>(sy), static_cast<T*>(dsrc),
-                         R, W, D, H, C, rows, hrows, halo);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The plan (cs channels a cluster, `cluster` CTAs of `rows` source rows
-// plus `halo` on either side, `hrows` reference rows) comes from
-// ops/sweep_warp.py::bwd_plan; it is checked here against what the kernel
-// needs.
-template <typename T, bool kMerge = false, bool kPtx = false>
-int launch_cluster(const void* g, const void* sx, const void* sy, void* dsrc,
-                   int B, int R, int W, int D, int H, int C, int cs,
-                   int cluster, int rows, int hrows, int halo,
-                   cudaStream_t stream) {
-  constexpr int V = mdt::Vec<T>::N;
-  if (C <= 0 || cs <= 0 || C % cs || cs % V || 32 % cs || cluster < 1 ||
-      cluster > 16 || rows < 1 || hrows < 1 || halo < 0 ||
-      static_cast<long long>(rows) * cluster < R ||
-      static_cast<long long>(hrows) * cluster < H ||
-      static_cast<long long>(rows + 2 * halo) * W * cs * 4 > 232448 ||
-      static_cast<long long>(D) * hrows * W >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(B) * R * W == 0) return 0;
-  switch (cs) {
-    case 4:
-      if constexpr (V <= 4)
-        return launch_cluster_cs<T, 4, kMerge, kPtx>(g, sx, sy, dsrc, B, R, W, D,
-                                               H, C, cluster, rows, hrows,
-                                               halo, stream);
-      break;
-    case 8:
-      return launch_cluster_cs<T, 8, kMerge, kPtx>(g, sx, sy, dsrc, B, R, W, D, H,
-                                             C, cluster, rows, hrows, halo,
-                                             stream);
-    case 16:
-      return launch_cluster_cs<T, 16, kMerge, kPtx>(g, sx, sy, dsrc, B, R, W, D,
-                                              H, C, cluster, rows, hrows,
-                                              halo, stream);
-    case 32:
-      return launch_cluster_cs<T, 32, kMerge, kPtx>(g, sx, sy, dsrc, B, R, W, D,
-                                              H, C, cluster, rows, hrows,
-                                              halo, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -545,80 +204,33 @@ int sweep_warp_fwd_bf16(const void* src, const void* sx, const void* sy,
 
 int sweep_warp_bwd_f32(const void* g, const void* sx, const void* sy,
                        void* dsrc, int B, int R, int W, int D, int H, int C,
-                       int cs, int cluster, int rows, int hrows, int halo,
                        void* stream) {
-  return launch_cluster<float>(g, sx, sy, dsrc, B, R, W, D, H, C, cs,
-                               cluster, rows, hrows, halo,
-                               static_cast<cudaStream_t>(stream));
+  return launch_bwd<float>(g, sx, sy, dsrc, B, R, W, D, H, C,
+                           static_cast<cudaStream_t>(stream));
 }
 
 int sweep_warp_bwd_bf16(const void* g, const void* sx, const void* sy,
                         void* dsrc, int B, int R, int W, int D, int H, int C,
-                        int cs, int cluster, int rows, int hrows, int halo,
                         void* stream) {
-  return launch_cluster<__nv_bfloat16>(g, sx, sy, dsrc, B, R, W, D, H, C, cs,
-                                       cluster, rows, hrows, halo,
-                                       static_cast<cudaStream_t>(stream));
+  return launch_bwd<__nv_bfloat16>(g, sx, sy, dsrc, B, R, W, D, H, C,
+                                   static_cast<cudaStream_t>(stream));
 }
 
-int sweep_warp_bwd_global_f32(const void* g, const void* sx, const void* sy,
-                              void* dsrc, int B, int R, int W, int D, int H,
-                              int C, void* stream) {
-  return launch_bwd_global<float>(g, sx, sy, dsrc, B, R, W, D, H, C,
-                                  static_cast<cudaStream_t>(stream));
-}
-
-int sweep_warp_bwd_global_bf16(const void* g, const void* sx, const void* sy,
-                               void* dsrc, int B, int R, int W, int D, int H,
-                               int C, void* stream) {
-  return launch_bwd_global<__nv_bfloat16>(g, sx, sy, dsrc, B, R, W, D, H, C,
-                                          static_cast<cudaStream_t>(stream));
-}
-
-// DESIGN STEPS (timing only, bfloat16): the register run-merge into a
-// zeroed float32 buffer, and the cluster kernel with the run-merge.
-// min_blocks: 1, 3 or 4 blocks of 256 an SM asked of the register
-// allocator (__launch_bounds__)
-int sweep_warp_bwd_merge_bf16(int min_blocks, const void* g, const void* sx,
+// DESIGN STEP (timing only): planes loaded at a time, 1, 2, 4 or 8.
+int sweep_warp_bwd_ahead_bf16(int ahead, const void* g, const void* sx,
                               const void* sy, void* dsrc, int B, int R, int W,
                               int D, int H, int C, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using T = __nv_bfloat16;
-  switch (min_blocks) {
+  switch (ahead) {
     case 1:
-      return launch_bwd_merge<T, 1>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
-    case 3:
-      return launch_bwd_merge<T, 3>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
-    case 4:
-      return launch_bwd_merge<T, 4>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// step: 0 the cluster kernel, 1 with the run-merge, 2 with red.shared,
-// 3 with both
-int sweep_warp_bwd_step_bf16(int step, const void* g, const void* sx,
-                             const void* sy, void* dsrc, int B, int R, int W,
-                             int D, int H, int C, int cs, int cluster,
-                             int rows, int hrows, int halo, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using T = __nv_bfloat16;
-  switch (step) {
-    case 0:
-      return launch_cluster<T, false, false>(g, sx, sy, dsrc, B, R, W, D, H,
-                                             C, cs, cluster, rows, hrows,
-                                             halo, s);
-    case 1:
-      return launch_cluster<T, true, false>(g, sx, sy, dsrc, B, R, W, D, H,
-                                            C, cs, cluster, rows, hrows, halo,
-                                            s);
+      return launch_bwd<T, 1>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
     case 2:
-      return launch_cluster<T, false, true>(g, sx, sy, dsrc, B, R, W, D, H,
-                                            C, cs, cluster, rows, hrows, halo,
-                                            s);
-    case 3:
-      return launch_cluster<T, true, true>(g, sx, sy, dsrc, B, R, W, D, H, C,
-                                           cs, cluster, rows, hrows, halo, s);
+      return launch_bwd<T, 2>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
+    case 4:
+      return launch_bwd<T, 4>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
+    case 8:
+      return launch_bwd<T, 8>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

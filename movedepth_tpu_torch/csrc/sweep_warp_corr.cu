@@ -23,18 +23,22 @@
 // chunks hold the same groups add with __shfl_xor_sync; the first G/V
 // lanes then store the point's G outputs as coalesced 16-byte rows (for
 // G < V the reduction first runs inside the lane, and lane 0 stores). A
-// thread walks kPlanes planes of one pixel; the grid covers (pixel tile,
-// plane group), plane groups of one tile on neighbouring blocks, so they
-// run together and share the tile's ref chunks and source taps in L2.
-// Registers stay small (one chunk each of taps, sums and ref), so enough
-// warps are resident to keep the gathers in flight, and batch 1 (7,680
-// pixels) still launches 4*L threads a pixel.
+// thread walks 8 planes of one pixel; the grid covers (pixel tile, plane
+// group), plane groups of one tile on neighbouring blocks, so they run
+// together and share the tile's ref chunks and source taps in L2.
+// Registers stay at 48-58 (one chunk each of taps, sums and ref), and
+// batch 1 (7,680 pixels) still launches L threads a pixel for each 8
+// planes.
 //
 // What bounds it: HBM traffic. At the shipped B=128, D=16, H=R=48, W=160,
 // C=32, G=16 in bf16 it writes 128*16*48*160*16*2 B = 503 MB and reads 126
 // MB of f32 coordinates and 126 MB of features; the 4 taps re-read the
 // source features D times, mostly from L1 and L2 because neighbouring
-// points share taps. The arithmetic is ~5*C FMAs per point. No wgmma and
+// points share taps. The arithmetic is ~5*C FMAs per point. The kernel
+// reaches ~40% of that bound: taking out the gather, the weights, the
+// correlate or the shuffle (sweep_warp_corr_variants.cu) saves 4-10%
+// each, so no single stage holds it; the L = 4 lanes of a point each
+// repeat the coordinate reads and the tap arithmetic. No wgmma and
 // no TMA: there is no matrix product here. Staging a source window with
 // TMA, writing Reg3D's layout directly and computing sx/sy in-kernel from
 // the depth bins (which would remove the coordinate reads) are left for

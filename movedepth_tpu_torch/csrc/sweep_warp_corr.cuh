@@ -18,48 +18,42 @@ enum Skip : int {
 };
 
 constexpr int kThreads = 128;
-
 // Planes a thread walks (one plane group). Blocks of one pixel tile and
 // neighbouring plane groups have neighbouring indices, so they run
 // together and read the tile's reference chunks and source taps from L2.
-template <int kPlanes>
+constexpr int kPlanes = 8;
+
 __host__ __device__ constexpr int plane_groups(int D) {
   return (D + kPlanes - 1) / kPlanes;
 }
 
 // src (B,R,W,C), ref (B,H,W,C), sx/sy (B,D,H,W) f32 -> out (B,D,H,W,G).
 // L = C / V lanes own one point, each a 16-byte chunk of V channels;
-// grid: (pixel tiles x plane groups); a tile is kTileRows rows of
-// kThreads / L / kTileRows pixels.
-template <typename T, int C, int G, int kSkip = 0, int kPlanes = 4,
-          int kTileRows = 1, int kChunks = 1>
+// grid: (pixel tiles x plane groups), a tile kThreads / L pixels of a row.
+template <typename T, int C, int G, int kSkip = 0, bool kPreload = true>
 __global__ void __launch_bounds__(kThreads)
     sweep_warp_corr_kernel(const T* __restrict__ src,
                            const T* __restrict__ ref,
                            const float* __restrict__ sx,
                            const float* __restrict__ sy, T* __restrict__ out,
                            int B, int R, int W, int D, int H) {
-  constexpr int V0 = mdt::Vec<T>::N;
-  constexpr int V = V0 * kChunks;  // channels a lane owns
+  constexpr int V = mdt::Vec<T>::N;
   constexpr int L = C / V;
   static_assert(C % V == 0 && 32 % L == 0, "C must be V, 2V, ... 32V");
   static_assert(C % G == 0, "groups must divide channels");
   constexpr float kInvK = static_cast<float>(G) / static_cast<float>(C);
 
-  constexpr int kCols = kThreads / L / kTileRows;
-  const int groups = plane_groups<kPlanes>(D);
+  constexpr int kCols = kThreads / L;
+  const int groups = plane_groups(D);
   const int tiles_x = (W + kCols - 1) / kCols;
-  const int tiles_h = (H + kTileRows - 1) / kTileRows;
   const long long tile = blockIdx.x / groups;
   const int d0 = static_cast<int>(blockIdx.x % groups) * kPlanes;
   const int lane = threadIdx.x % L;
-  const int pt = threadIdx.x / L;
-  const int tx = static_cast<int>(tile % tiles_x);
-  const long long bt = tile / tiles_x;  // b * tiles_h + h tile
-  const int h_ = static_cast<int>(bt % tiles_h) * kTileRows + pt / kCols;
-  const int x_ = tx * kCols + pt % kCols;
-  const int b_ = static_cast<int>(bt / tiles_h);
-  const bool live = b_ < B && h_ < H && x_ < W;
+  const long long bh_ = tile / tiles_x;  // b * H + h
+  const int x_ = static_cast<int>(tile % tiles_x) * kCols + threadIdx.x / L;
+  const int h_ = static_cast<int>(bh_ % H);
+  const int b_ = static_cast<int>(bh_ / H);
+  const bool live = b_ < B && x_ < W;
   // dead lanes follow pixel 0 and store nothing: every lane of a warp
   // takes part in the shuffles
   const int x = live ? x_ : 0;
@@ -68,19 +62,32 @@ __global__ void __launch_bounds__(kThreads)
   const long long q = (static_cast<long long>(b) * H + h) * W + x;
 
   float r[V];
-  if constexpr ((kSkip & kNoCorrelate) == 0) {
-#pragma unroll
-    for (int u = 0; u < V; u += V0) mdt::load16(ref + q * C + lane * V + u, r + u);
-  }
+  if constexpr ((kSkip & kNoCorrelate) == 0)
+    mdt::load16(ref + q * C + lane * V, r);
   const T* __restrict__ s =
       src + static_cast<long long>(b) * R * W * C + lane * V;
+
+  // the coordinates of all the thread's planes in flight at once (the
+  // last plane's stand in past D)
+  float xs[kPlanes], ys[kPlanes];
+  if constexpr (kPreload) {
+#pragma unroll
+    for (int dd = 0; dd < kPlanes; ++dd) {
+      const long long p =
+          ((static_cast<long long>(b) * D + min(d0 + dd, D - 1)) * H + h) * W +
+          x;
+      xs[dd] = sx[p];
+      ys[dd] = sy[p];
+    }
+  }
 
 #pragma unroll
   for (int dd = 0; dd < kPlanes; ++dd) {
     const int d = d0 + dd;
     if (d >= D) break;
     const long long p = ((static_cast<long long>(b) * D + d) * H + h) * W + x;
-    const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
+    const mdt::Taps t = kPreload ? mdt::zeros_taps(xs[dd], ys[dd], W, R)
+                                 : mdt::zeros_taps(sx[p], sy[p], W, R);
     float acc[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
@@ -88,10 +95,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < 4; ++k) {
       if (!t.valid[k]) continue;
       float v[V];
-      const T* tap = (kSkip & kNoGather) != 0 ? s
-                                              : s + mdt::tap_offset(t, k, W) * C;
-#pragma unroll
-      for (int u = 0; u < V; u += V0) mdt::load16(tap + u, v + u);
+      mdt::load16((kSkip & kNoGather) != 0
+                      ? s
+                      : s + mdt::tap_offset(t, k, W) * C,
+                  v);
       const float wk = (kSkip & kNoWeights) != 0 ? 0.25f : t.w[k];
 #pragma unroll
       for (int j = 0; j < V; ++j) acc[j] = fmaf(wk, v[j], acc[j]);
@@ -115,10 +122,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int j = 0; j < V; ++j) acc[j] *= kInvK;
-      if (live && lane < G / V) {
-#pragma unroll
-        for (int u = 0; u < V; u += V0) mdt::store16(o + lane * V + u, acc + u);
-      }
+      if (live && lane < G / V) mdt::store16(o + lane * V, acc);
     } else {
       // one lane holds V / G channels of every group
       float sum[G];
@@ -141,15 +145,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Blocks of a launch over B*H*W pixels and D planes.
-template <typename T, int C, int kPlanes = 4, int kTileRows = 1,
-          int kChunks = 1>
+template <typename T, int C>
 inline unsigned grid_blocks(int B, int H, int W, int D) {
-  constexpr int kCols =
-      kThreads / (C / mdt::Vec<T>::N / kChunks) / kTileRows;
-  const long long tiles = static_cast<long long>(B) *
-                          ((H + kTileRows - 1) / kTileRows) *
-                          ((W + kCols - 1) / kCols);
-  return static_cast<unsigned>(tiles * plane_groups<kPlanes>(D));
+  constexpr int kCols = kThreads / (C / mdt::Vec<T>::N);
+  const long long tiles =
+      static_cast<long long>(B) * H * ((W + kCols - 1) / kCols);
+  return static_cast<unsigned>(tiles * plane_groups(D));
 }
 
 }  // namespace mdt_swc

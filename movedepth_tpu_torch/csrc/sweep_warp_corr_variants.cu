@@ -19,9 +19,7 @@
 // What bounds them: as sweep_warp_corr.cu, HBM traffic (the 503 MB output
 // at B=128 and the 126 MB of coordinates); the differences between the
 // variants show what each stage adds on top.
-//
-// sweep_warp_corr_planes_bf16 times the full kernel with 1 to 16 planes a
-// thread (design steps; the shipped kernel walks 4).
+
 
 #include "sweep_warp_corr.cuh"
 
@@ -34,16 +32,13 @@ using mdt_swc::sweep_warp_corr_kernel;
 constexpr int kC = 32;
 constexpr int kG = 16;
 
-template <int kSkip, int kPlanes = 4, int kTileRows = 1, int kChunks = 1>
+template <int kSkip, bool kPreload = true>
 int launch(const void* src, const void* ref, const void* sx, const void* sy,
            void* out, int B, int R, int W, int D, int H,
            cudaStream_t stream) {
   if (static_cast<long long>(B) * H * W == 0 || D == 0) return 0;
-  sweep_warp_corr_kernel<__nv_bfloat16, kC, kG, kSkip, kPlanes, kTileRows,
-                         kChunks>
-      <<<grid_blocks<__nv_bfloat16, kC, kPlanes, kTileRows, kChunks>(B, H, W,
-                                                                     D),
-         kThreads, 0, stream>>>(
+  sweep_warp_corr_kernel<__nv_bfloat16, kC, kG, kSkip, kPreload>
+      <<<grid_blocks<__nv_bfloat16, kC>(B, H, W, D), kThreads, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(src),
           static_cast<const __nv_bfloat16*>(ref),
           static_cast<const float*>(sx), static_cast<const float*>(sy),
@@ -82,44 +77,17 @@ int sweep_warp_corr_variant_bf16(int skip, const void* src, const void* ref,
   }
 }
 
-// planes: 1, 2, 4, 8 or 16 planes a thread, tile rows 1 (and for 8 and 16
-// planes 2 or 4): the full kernel otherwise.
-int sweep_warp_corr_planes_bf16(int planes, const void* src, const void* ref,
-                                const void* sx, const void* sy, void* out,
-                                int B, int R, int W, int D, int H, int C,
-                                int G, void* stream) {
+// DESIGN STEP (timing only): the full kernel without (0) or with (1) the
+// coordinates of all its planes loaded first.
+int sweep_warp_corr_preload_bf16(int preload, const void* src,
+                                 const void* ref, const void* sx,
+                                 const void* sy, void* out, int B, int R,
+                                 int W, int D, int H, int C, int G,
+                                 void* stream) {
   if (C != kC || G != kG) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (planes) {  // planes + 100 * (tile rows - 1)
-    case 1:
-      return launch<0, 1>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 2:
-      return launch<0, 2>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 4:
-      return launch<0, 4>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 8:
-      return launch<0, 8>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 16:
-      return launch<0, 16>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 108:
-      return launch<0, 8, 2>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 308:
-      return launch<0, 8, 4>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 116:
-      return launch<0, 16, 2>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 316:
-      return launch<0, 16, 4>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 1004:  // + 1000: two 16-byte chunks a lane
-      return launch<0, 4, 1, 2>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 1008:
-      return launch<0, 8, 1, 2>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 1016:
-      return launch<0, 16, 1, 2>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    case 2008:  // + 2000: four chunks a lane (one thread a point)
-      return launch<0, 8, 1, 4>(src, ref, sx, sy, out, B, R, W, D, H, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return preload ? launch<0, true>(src, ref, sx, sy, out, B, R, W, D, H, s)
+                 : launch<0, false>(src, ref, sx, sy, out, B, R, W, D, H, s);
 }
 
 }  // extern "C"

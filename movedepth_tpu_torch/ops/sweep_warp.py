@@ -10,13 +10,6 @@ plain PyTorch versions :func:`sweep_warp_corr_reference` and
 :func:`sweep_warp_reference`, which are also the kernels' oracles on the
 card.
 
-The source gradient takes one of two kernels, chosen by shape
-(:func:`bwd_plan`): a thread-block cluster that holds a (batch element,
-channel slice) of dsrc in shared memory and writes it once in src's dtype,
-for every plane whose band of source rows fits a CTA's shared memory; and
-the global-atomic kernel (float32 atomics into a zeroed buffer, then a
-cast) for larger planes.
-
 The TPU kernels' dispatch machinery has no counterpart here: the row and
 column windows, the rung ladder and its coverage checks, and the transposed
 source layout exist because a TPU cannot gather. The card gathers natively,
@@ -35,8 +28,7 @@ from movedepth_tpu_torch import native
 # counts; a caller that wants the launches of one run sets them to 0 first.
 launches = 0  # sweep_warp_corr
 warp_launches = 0  # sweep_warp forward
-warp_bwd_launches = 0  # sweep_warp backward, the cluster kernel
-warp_bwd_global_launches = 0  # sweep_warp backward, the global-atomic kernel
+warp_bwd_launches = 0  # sweep_warp backward (source gradient)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -46,58 +38,11 @@ _SIGNATURES = {
     "sweep_warp_corr_f32": (_ARGTYPES, ctypes.c_int),
     "sweep_warp_corr_bf16": (_ARGTYPES, ctypes.c_int),
     "sweep_warp_corr_supported": ([ctypes.c_int] * 2, ctypes.c_int)}
-_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
-    ctypes.c_void_p]
-_WARP_SIGNATURES = {
-    **{f"sweep_warp_{d}_{t}": (_WARP_ARGTYPES, ctypes.c_int)
-       for d in ("fwd", "bwd_global") for t in ("f32", "bf16")},
-    **{f"sweep_warp_bwd_{t}": (_BWD_ARGTYPES, ctypes.c_int)
-       for t in ("f32", "bf16")},
-    "sweep_warp_bwd_merge_bf16": ([ctypes.c_int] + _WARP_ARGTYPES,
-                                  ctypes.c_int),
-    "sweep_warp_bwd_step_bf16": ([ctypes.c_int] + _BWD_ARGTYPES,
-                                 ctypes.c_int)}
-
-# The cluster source gradient (csrc/sweep_warp.cu): CTAs a cluster, and
-# the shared memory one CTA may hold (H100: 227 KB a block).
-CLUSTER = 8
-HALO = 2
-SMEM_LIMIT = 232448
-# A CTA's band above half the limit leaves room for one CTA an SM.
-TWO_CTAS_SMEM = SMEM_LIMIT // 2 - 1024
-
-
-def bwd_plan(src_shape, dtype, height, cs=None, cluster=CLUSTER, halo=HALO):
-    """How the cluster kernel covers the source gradient of a (B, R, W, C)
-    source warped to ``height`` reference rows: a dict of ``cs`` (channels
-    a cluster), ``cluster`` (CTAs a cluster), ``rows`` (source rows a CTA
-    owns), ``halo`` (rows it also holds on either side, so that taps just
-    past its band add locally), ``hrows`` (reference rows a CTA walks),
-    ``smem`` (bytes a CTA: rows + 2 halo of float32) and ``ctas`` (in the
-    launch); or None
-    when no channel slice of a band fits a CTA's shared memory, and the
-    global-atomic kernel takes the plane.
-
-    ``cs`` divides C, is a multiple of the 16-byte vector (4 float32 or 8
-    bfloat16 channels) and at most 32. The largest one whose band leaves
-    room for two CTAs an SM is chosen, else the largest that fits at all
-    (``cs`` given: that one, if it fits)."""
-    b, r, w, c = src_shape
-    vec = 16 // torch.empty((), dtype=dtype).element_size()
-    rows = -(-r // cluster)
-    halo = min(halo, r - 1)
-    smem = {s: (rows + 2 * halo) * w * s * 4 for s in (32, 16, 8, 4)
-            if c % s == 0 and s % vec == 0}
-    fits = [s for s, n in smem.items() if n <= SMEM_LIMIT]
-    if cs is not None:
-        fits = [s for s in fits if s == cs]
-    if not fits:
-        return None
-    two = [s for s in fits if smem[s] <= TWO_CTAS_SMEM]
-    pick = max(two or fits)
-    return {"cs": pick, "cluster": cluster, "rows": rows, "halo": halo,
-            "hrows": -(-height // cluster), "smem": smem[pick],
-            "ctas": b * (c // pick) * cluster}
+_WARP_SIGNATURES = {f"sweep_warp_{d}_{t}": (_WARP_ARGTYPES, ctypes.c_int)
+                    for d in ("fwd", "bwd") for t in ("f32", "bf16")}
+_WARP_SIGNATURES["sweep_warp_bwd_ahead_bf16"] = ([ctypes.c_int]
+                                                 + _WARP_ARGTYPES,
+                                                 ctypes.c_int)
 
 
 def grid_to_pixel(grid, height, width):
@@ -236,51 +181,30 @@ def sweep_warp_corr(src_feat, ref_feat, sx, sy, groups: int):
     return out
 
 
-def _warp_kernel(direction, x, sx, sy, out, *plan):
-    """Launch a sweep_warp kernel on CUDA tensors: "fwd" (x is src, out the
-    warp), "bwd" (x is the warp's gradient, out the source gradient in x's
-    dtype; ``plan`` the cluster's cs, cluster, rows, hrows, halo) or
-    "bwd_global" (out the zeroed float32 source gradient)."""
+def _warp_kernel(direction, x, sx, sy, out):
+    """Launch sweep_warp's forward ("fwd": x is src, out the warp) or
+    backward ("bwd": x is the warp's gradient, out the zeroed float32
+    source gradient) kernel on CUDA tensors."""
     _check_kernel_inputs(x, sx, sy, out)
     dt = "bf16" if x.dtype == torch.bfloat16 else "f32"
     fn = getattr(warp_library(), f"sweep_warp_{direction}_{dt}")
     b, d, h, w = sx.shape
-    _, r, _, c = x.shape if direction == "fwd" else out.shape
+    _, r, _, c = out.shape if direction == "bwd" else x.shape
     if c % (16 // x.element_size()):
         raise ValueError(f"the kernel needs C={c} to fill 16-byte vectors")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(),
-                 b, r, w, d, h, c, *plan,
+                 b, r, w, d, h, c,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"sweep_warp {direction} launch failed: CUDA "
                            f"error {err}")
 
 
-def sweep_warp_bwd(grad, sx, sy, src_shape):
-    """The source gradient of :func:`sweep_warp` on CUDA tensors: (B, R, W,
-    C) in grad's dtype. The cluster kernel where :func:`bwd_plan` finds one
-    (one launch, dsrc written in grad's dtype), else the global-atomic
-    kernel into a zeroed float32 buffer, then a cast."""
-    global warp_bwd_launches, warp_bwd_global_launches
-    plan = bwd_plan(src_shape, grad.dtype, sx.shape[2])
-    if plan is not None:
-        dsrc = torch.empty(src_shape, dtype=grad.dtype, device=grad.device)
-        _warp_kernel("bwd", grad, sx, sy, dsrc, plan["cs"], plan["cluster"],
-                     plan["rows"], plan["hrows"], plan["halo"])
-        warp_bwd_launches += 1
-        return dsrc
-    dsrc = torch.zeros(src_shape, dtype=torch.float32, device=grad.device)
-    _warp_kernel("bwd_global", grad, sx, sy, dsrc)
-    warp_bwd_global_launches += 1
-    return dsrc.to(grad.dtype)
-
-
 class SweepWarp(torch.autograd.Function):
     """The CUDA plane-sweep warp, differentiable with respect to the source
-    features (dsrc accumulated in float32, rounded once to src's dtype:
-    :func:`sweep_warp_bwd`); the coordinates get no gradient, as in the TPU
-    kernel's VJP."""
+    features (dsrc accumulated in float32, cast to src's dtype); the
+    coordinates get no gradient, as in the TPU kernel's VJP."""
 
     @staticmethod
     def forward(ctx, src_feat, sx, sy):
@@ -299,11 +223,16 @@ class SweepWarp(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
+        global warp_bwd_launches
         if not ctx.needs_input_grad[0]:
             return None, None, None
         sx, sy = ctx.saved_tensors
-        return (sweep_warp_bwd(grad.to(ctx.src_dtype).contiguous(), sx, sy,
-                               ctx.src_shape), None, None)
+        dsrc = torch.zeros(ctx.src_shape, dtype=torch.float32,
+                           device=grad.device)
+        _warp_kernel("bwd", grad.to(ctx.src_dtype).contiguous(), sx, sy,
+                     dsrc)
+        warp_bwd_launches += 1
+        return dsrc.to(ctx.src_dtype), None, None
 
 
 def sweep_warp(src_feat, sx, sy):

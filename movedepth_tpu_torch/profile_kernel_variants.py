@@ -41,7 +41,7 @@ launches = 0  # variant kernel launches in this process
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
 _SIGNATURES = {"sweep_warp_corr_variant_bf16": (_ARGTYPES, ctypes.c_int),
-               "sweep_warp_corr_planes_bf16": (_ARGTYPES, ctypes.c_int)}
+               "sweep_warp_corr_preload_bf16": (_ARGTYPES, ctypes.c_int)}
 
 
 def variant_library():
