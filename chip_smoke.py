@@ -1384,79 +1384,9 @@ def phase_variants():
     return rec
 
 
-def phase_load_ahead_steps(card):
-    """DESIGN STEPS (timing only): row 3's whole backward at the train shape
-    with 1, 2, 4 or 8 planes' loads in flight a thread, on phase 7's and
-    KITTI-speed coordinates; row 1 at batch 128, 16 and 1 without and with
-    the coordinates of its 8 planes loaded first. Each checked first."""
-    import torch
-    from movedepth_tpu_torch import profile_kernel_variants as PKV
-    from movedepth_tpu_torch.ops import sweep_warp as SW
-
-    s = TRAIN_SHAPE
-    b, r, w, c, d = s["B"], s["R"], s["W"], s["C"], s["D"]
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(1)
-    sx, sy = _sweep_coords(b, r, w, d, gen)
-    _edge_cases(sx, sy, w, r)
-    src = torch.randn(b, r, w, c, generator=gen).bfloat16().to(dev)
-    g16 = torch.randn((b, d, r, w, c), generator=gen).bfloat16().to(dev)
-    fast = _sweep_coords(b, r, w, d, torch.Generator().manual_seed(3), 10.0)
-    coords = {"phase 7": (sx.to(dev), sy.to(dev)),
-              "KITTI speed": tuple(t.to(dev) for t in fast)}
-    lib = SW.warp_library()
-    dsrc16 = torch.empty((b, r, w, c), dtype=torch.bfloat16, device=dev)
-    dsrc32 = torch.zeros((b, r, w, c), device=dev)
-    for ahead in (1, 2, 4, 8):
-        row = {}
-        for tag, (x, y) in coords.items():
-            launch = _bare(lambda *a: lib.sweep_warp_bwd_ahead_bf16(ahead, *a),
-                           g16, x, y, dsrc32, b, r, w, d, r, c)
-
-            def whole(launch=launch):
-                dsrc32.zero_()
-                launch()
-                dsrc16.copy_(dsrc32)
-            whole()
-            leaf = src.float().requires_grad_()
-            want = torch.autograd.grad(SW.sweep_warp_reference(leaf, x, y),
-                                       leaf, g16.float())[0]
-            _within(f"step ahead{ahead}, {tag}", dsrc16, want, bf16=True)
-            row[tag] = device_ms(whole)
-        log(f"[steps] row 3 ahead{ahead}: " + ", ".join(
-            f"{ms:.4f} ms on {tag}" for tag, ms in row.items()) + f"; {card}")
-
-    vlib = PKV.variant_library()
-    gen = torch.Generator().manual_seed(0)
-    for nb in (128, 16, 1):
-        src_c = torch.randn(nb, r, w, c, generator=gen).bfloat16().to(dev)
-        ref_c = torch.randn(nb, r, w, c, generator=gen).bfloat16().to(dev)
-        x, y = (t.to(dev) for t in _sweep_coords(nb, r, w, d, gen))
-        out = torch.empty((nb, d, r, w, 16), dtype=torch.bfloat16, device=dev)
-        want32 = SW.sweep_warp_corr_reference(src_c.float(), ref_c.float(), x,
-                                              y, 16)
-        times = {}
-        for preload in (0, 1):
-            times[f"preload{preload}"] = device_ms(_bare(
-                lambda *a: vlib.sweep_warp_corr_preload_bf16(preload, *a),
-                src_c, ref_c, x, y, out, nb, r, w, d, r, c, 16))
-            _within(f"row 1 step preload{preload}, batch {nb}", out, want32,
-                    bf16=True)
-        del want32
-        log(f"[steps] row 1 batch {nb}: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in times.items()) + f"; {card}")
-
-
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
-        return
-    if sys.argv[1:] == ["--steps"]:  # the load-ahead design steps alone
-        card = phase_device()
-        phase_build()
-        phase_load_ahead_steps(card)
-        phase_variants()
-        log(card)
         return
     card = phase_device()
     phase_build()

@@ -30,6 +30,8 @@
 // while the tap base (x0, y0) stays the same and adds the run to dsrc
 // once, with 16-byte float4 atomicAdd (sm_90) into the zeroed float32
 // (B,R,W,C) buffer that the wrapper allocates and casts afterwards. The
+// loads of 4 planes (coordinates and gradient) are issued together, so a
+// thread waits for memory once per 4 planes, not once a plane. The
 // summation order, and so the last bits of dsrc, vary from run to run.
 //
 // What bounds the source gradient: the rate at which the L2 takes the
@@ -47,6 +49,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kAhead = 4;  // planes whose loads the backward issues together
 
 // src (B,R,W,C) T, sx/sy (B,D,H,W) f32 -> out (B,D,H,W,C) T.
 template <typename T>
@@ -83,7 +86,7 @@ __global__ void __launch_bounds__(kThreads)
 // g (B,D,H,W,C) T, sx/sy (B,D,H,W) f32 -> dsrc (B,R,W,C) f32 (pre-zeroed);
 // one thread a (b, h, x, 16-byte chunk), over the D planes, kAhead planes'
 // coordinates and gradient loaded at a time.
-template <typename T, int kAhead>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     sweep_warp_bwd_kernel(const T* __restrict__ g,
                           const float* __restrict__ sx,
@@ -169,7 +172,7 @@ int launch_fwd(const void* src, const void* sx, const void* sy, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kAhead = 4>
+template <typename T>
 int launch_bwd(const void* g, const void* sx, const void* sy, void* dsrc,
                int B, int R, int W, int D, int H, int C,
                cudaStream_t stream) {
@@ -177,7 +180,7 @@ int launch_bwd(const void* g, const void* sx, const void* sy, void* dsrc,
   const long long n = static_cast<long long>(B) * H * W * (C / mdt::Vec<T>::N);
   if (n == 0 || D == 0) return 0;
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
-  sweep_warp_bwd_kernel<T, kAhead><<<grid, kThreads, 0, stream>>>(
+  sweep_warp_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(g), static_cast<const float*>(sx),
       static_cast<const float*>(sy), static_cast<float*>(dsrc), n, R, W, D, H,
       C);
@@ -214,25 +217,6 @@ int sweep_warp_bwd_bf16(const void* g, const void* sx, const void* sy,
                         void* stream) {
   return launch_bwd<__nv_bfloat16>(g, sx, sy, dsrc, B, R, W, D, H, C,
                                    static_cast<cudaStream_t>(stream));
-}
-
-// DESIGN STEP (timing only): planes loaded at a time, 1, 2, 4 or 8.
-int sweep_warp_bwd_ahead_bf16(int ahead, const void* g, const void* sx,
-                              const void* sy, void* dsrc, int B, int R, int W,
-                              int D, int H, int C, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using T = __nv_bfloat16;
-  switch (ahead) {
-    case 1:
-      return launch_bwd<T, 1>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
-    case 2:
-      return launch_bwd<T, 2>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
-    case 4:
-      return launch_bwd<T, 4>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
-    case 8:
-      return launch_bwd<T, 8>(g, sx, sy, dsrc, B, R, W, D, H, C, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -30,7 +30,7 @@ __host__ __device__ constexpr int plane_groups(int D) {
 // src (B,R,W,C), ref (B,H,W,C), sx/sy (B,D,H,W) f32 -> out (B,D,H,W,G).
 // L = C / V lanes own one point, each a 16-byte chunk of V channels;
 // grid: (pixel tiles x plane groups), a tile kThreads / L pixels of a row.
-template <typename T, int C, int G, int kSkip = 0, bool kPreload = true>
+template <typename T, int C, int G, int kSkip = 0>
 __global__ void __launch_bounds__(kThreads)
     sweep_warp_corr_kernel(const T* __restrict__ src,
                            const T* __restrict__ ref,
@@ -67,27 +67,12 @@ __global__ void __launch_bounds__(kThreads)
   const T* __restrict__ s =
       src + static_cast<long long>(b) * R * W * C + lane * V;
 
-  // the coordinates of all the thread's planes in flight at once (the
-  // last plane's stand in past D)
-  float xs[kPlanes], ys[kPlanes];
-  if constexpr (kPreload) {
-#pragma unroll
-    for (int dd = 0; dd < kPlanes; ++dd) {
-      const long long p =
-          ((static_cast<long long>(b) * D + min(d0 + dd, D - 1)) * H + h) * W +
-          x;
-      xs[dd] = sx[p];
-      ys[dd] = sy[p];
-    }
-  }
-
 #pragma unroll
   for (int dd = 0; dd < kPlanes; ++dd) {
     const int d = d0 + dd;
     if (d >= D) break;
     const long long p = ((static_cast<long long>(b) * D + d) * H + h) * W + x;
-    const mdt::Taps t = kPreload ? mdt::zeros_taps(xs[dd], ys[dd], W, R)
-                                 : mdt::zeros_taps(sx[p], sy[p], W, R);
+    const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
     float acc[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;

@@ -32,12 +32,12 @@ using mdt_swc::sweep_warp_corr_kernel;
 constexpr int kC = 32;
 constexpr int kG = 16;
 
-template <int kSkip, bool kPreload = true>
+template <int kSkip>
 int launch(const void* src, const void* ref, const void* sx, const void* sy,
            void* out, int B, int R, int W, int D, int H,
            cudaStream_t stream) {
   if (static_cast<long long>(B) * H * W == 0 || D == 0) return 0;
-  sweep_warp_corr_kernel<__nv_bfloat16, kC, kG, kSkip, kPreload>
+  sweep_warp_corr_kernel<__nv_bfloat16, kC, kG, kSkip>
       <<<grid_blocks<__nv_bfloat16, kC>(B, H, W, D), kThreads, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(src),
           static_cast<const __nv_bfloat16*>(ref),
@@ -75,19 +75,6 @@ int sweep_warp_corr_variant_bf16(int skip, const void* src, const void* ref,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// DESIGN STEP (timing only): the full kernel without (0) or with (1) the
-// coordinates of all its planes loaded first.
-int sweep_warp_corr_preload_bf16(int preload, const void* src,
-                                 const void* ref, const void* sx,
-                                 const void* sy, void* out, int B, int R,
-                                 int W, int D, int H, int C, int G,
-                                 void* stream) {
-  if (C != kC || G != kG) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return preload ? launch<0, true>(src, ref, sx, sy, out, B, R, W, D, H, s)
-                 : launch<0, false>(src, ref, sx, sy, out, B, R, W, D, H, s);
 }
 
 }  // extern "C"

@@ -7,9 +7,9 @@ Each variant of ``csrc/sweep_warp_corr_variants.cu`` takes one stage out
 of the CUDA kernel: the gather (``no_gather``), the bilinear weights
 (``no_weights``), the product with the reference features
 (``no_correlate``) or the shuffle that sums a group over the lanes of a
-point (``no_reduce``). They compute wrong
-results by design and serve only to time what each stage adds; ``full``
-is the shipped kernel, bit for bit. :func:`main` times each variant at the
+point (``no_reduce``). They compute wrong results by design and serve
+only to time what each stage adds; ``full`` is the shipped kernel, bit
+for bit. :func:`main` times each variant at the
 shipped inference shape (B=128, 48x160, C=32, D=16, G=16, bfloat16) with
 :func:`device_ms` (many bare launches between two CUDA events), then one
 call of the public ``sweep_warp_corr`` wrapper (checks, allocation,
@@ -38,10 +38,9 @@ SHIPPED = dict(R=48, W=160, C=32, D=16, G=16)
 launches = 0  # variant kernel launches in this process
 
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p])
-_SIGNATURES = {"sweep_warp_corr_variant_bf16": (_ARGTYPES, ctypes.c_int),
-               "sweep_warp_corr_preload_bf16": (_ARGTYPES, ctypes.c_int)}
+_SIGNATURES = {"sweep_warp_corr_variant_bf16": (
+    [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p], ctypes.c_int)}
 
 
 def variant_library():
