@@ -8,20 +8,25 @@ without printing the final ok line:
 
 1. device: a CUDA card must be present (the CPU is never used instead);
    prints its name and power limit from nvidia-smi.
-2. build: compiles every csrc/*.cu with nvcc for sm_90a, all at once.
+2. build: compiles every csrc/*.cu with nvcc for sm_90a, all at once;
+   prints ptxas's registers, spills and static shared memory of the
+   sweep-warp, warp-correlate (C=32, G=16) and image-warp kernels.
 3. kernel: sweep_warp_corr against its plain PyTorch version on the card
    at the shipped prior-scale shape, in float32 and bfloat16, plus an
-   out-of-frame case; times both.
+   out-of-frame case; times it at batch 16, 128 (the serving batch) and 1.
 4. main path: forward_infer_fused of the shipped Config() models at
    640x192, float32 on the card against the same port on the CPU, and the
    same forward in bfloat16 autocast.
 5. serve: the inference CLI on 4 synthetic frames and a .pth folder.
-6. throughput: forward_infer frames/s in bfloat16 at batch 128 and 1.
+6. throughput: forward_infer frames/s in bfloat16 at batch 128, with the
+   kernel and with its plain version in turns (twice each), and at batch 1.
 7. train kernels: the sweep warp and the border image warp, forward and
    backward, against their plain versions (and autograd) at the shipped
    train shapes (batch 12), exact-bound and out-of-frame coordinates
-   included, the border warp's stack bit for bit; times kernel, plain
-   version and library call; counts the CUDA kernels of one
+   included, the sweep warp's source gradient also at KITTI speed (~1 m
+   between frames), the border warp's stack bit for bit; times kernel
+   (the sweep warp's whole backward: zero, kernel, cast), plain version
+   and library call; counts the CUDA kernels of one
    photometric_losses forward and backward with the border clamp in the
    kernels and in torch (torch.profiler, in a child process:
    ``chip_smoke.py --clamp-launches``).
@@ -38,8 +43,8 @@ without printing the final ok line:
    kernel 2 forward + 2 backward, the plain warp kernel none); the same
    losses as phase 8's card step within 1e-5.
 9. train throughput: train_step in bfloat16 autocast at batch 12, with the
-   kernels and with this script swapping in the plain versions; 9b: with
-   kernel_l1 on.
+   kernels and with this script swapping in the plain versions, in turns
+   (twice each); 9b: with kernel_l1 on.
 10. train CLI, this slice's path: ``python -m movedepth_tpu_torch.cli.train``
    on a KITTI-layout tree of synthetic 1242x375 JPEGs at 640x192, batch 12,
    bfloat16, --kernel_l1, 2 epochs with validation and checkpoints, then a
