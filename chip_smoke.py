@@ -13,19 +13,23 @@ without printing the final ok line:
    sweep-warp, warp-correlate (C=32, G=16) and image-warp kernels.
 3. kernel: sweep_warp_corr against its plain PyTorch version on the card
    at the shipped prior-scale shape, in float32 and bfloat16, plus an
-   out-of-frame case; times it at batch 16, 128 (the serving batch) and 1.
+   out-of-frame case, and at every (C, G) pair it is built for on a small
+   plane; times it at batch 16, 128 (the serving batch) and 1.
 4. main path: forward_infer_fused of the shipped Config() models at
    640x192, float32 on the card against the same port on the CPU, and the
    same forward in bfloat16 autocast.
+4b. the same float32 check at batch 1 and 8 bins with reg3d_c = 2, and
+   with prior_scale = 3, reg3d_c = 64.
 5. serve: the inference CLI on 4 synthetic frames and a .pth folder.
 6. throughput: forward_infer frames/s in bfloat16 at batch 128, with the
    kernel and with its plain version in turns (twice each), and at batch 1.
 7. train kernels: the sweep warp and the border image warp, forward and
    backward, against their plain versions (and autograd) at the shipped
    train shapes (batch 12), exact-bound and out-of-frame coordinates
-   included, the sweep warp's source gradient also at KITTI speed (~1 m
-   between frames), the border warp's stack bit for bit; times kernel
-   (the sweep warp's whole backward: zero, kernel, cast), plain version
+   included, the sweep warp also at KITTI speed (~1 m between frames),
+   the border warp's stack bit for bit; times kernel (the sweep warp's
+   forward and whole backward, zero, kernel and cast, on both coordinate
+   sets), plain version
    and library call; counts the CUDA kernels of one
    photometric_losses forward and backward with the border clamp in the
    kernels and in torch (torch.profiler, in a child process:
@@ -347,6 +351,50 @@ def _corr_times(b, gen, lib):
                            r, w, d, r, c, g))
 
 
+# every (C, G) pair the JAX package fuses at the FPN's matching widths: G
+# divides C and C/G is a power of two
+SWC_PAIRS = [(c, c >> k) for c in (8, 16, 32, 64) for k in range(c.bit_length())]
+
+
+def _check_pairs(dev):
+    """sweep_warp_corr at every (C, G) pair of SWC_PAIRS against its plain
+    version on a 16x40 plane, 16 planes of KITTI-like sweep coordinates,
+    float32 and bfloat16, batch 2 and 1: within 1e-5 of the volume's range
+    (plus one bf16 ulp of the float32 result in bfloat16). Raises on the
+    first failure."""
+    import torch
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    gen = torch.Generator().manual_seed(5)
+    b, r, w, d = 2, 16, 40, 16
+    sx, sy = (t.to(dev) for t in _sweep_coords(b, r, w, d, gen))
+    worst = -math.inf
+    for c, g in SWC_PAIRS:
+        src = torch.randn(b, r, w, c, generator=gen).to(dev)
+        ref = torch.randn(b, r, w, c, generator=gen).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for nb in (2, 1):
+                args = [t[:nb].contiguous() for t in (src.to(dtype),
+                                                      ref.to(dtype), sx, sy)]
+                got = SW.sweep_warp_corr(*args, g)
+                want = SW.sweep_warp_corr_reference(
+                    args[0].float(), args[1].float(), *args[2:], g)
+                torch.cuda.synchronize()
+                excess = ((got.float() - want).abs() - 1e-5
+                          * want.abs().max())
+                if dtype == torch.bfloat16:
+                    excess = excess - _bf16_ulp(want)
+                worst = max(worst, excess.max().item())
+                if (got.dtype != dtype or got.shape != want.shape
+                        or not excess.max().item() <= 0):
+                    raise RuntimeError(f"sweep_warp_corr C={c}, G={g}, "
+                                       f"{dtype}, batch {nb} disagrees with "
+                                       "the plain version")
+    log(f"[kernel] every (C, G) pair: {len(SWC_PAIRS)} of {len(SWC_PAIRS)} "
+        f"pairs pass ({SWC_PAIRS}) in float32 and bfloat16 at batch 2 and "
+        f"1 on a {r}x{w} plane, {d} planes; worst excess over the tolerance "
+        f"{worst:.3e} (must be <= 0)")
+
+
 def phase_kernel(card):
     """Kernel vs plain version on the card at the shipped prior-scale shape
     (batch cut to 16) with coordinates from the sweep grid of small,
@@ -377,6 +425,8 @@ def phase_kernel(card):
     if zeros.abs().max().item() != 0 or zeros32.abs().max().item() != 0:
         raise RuntimeError("out-of-frame taps did not give exact zeros")
     log("[kernel] out-of-frame coordinates: exact zeros in both dtypes")
+
+    _check_pairs(dev)
 
     lib = SW.kernel_library()
     times = {}
@@ -487,6 +537,51 @@ def phase_main_path():
         log(f"[main] bfloat16 vs float32 on the card {key}: " + ", ".join(
             f"{k} {v:.3e}" for k, v in st.items()))
     return cpu_models
+
+
+def phase_group_configs():
+    """forward_infer_fused at 640x192, batch 1, 8 depth bins, in the two
+    configurations whose (C, G) pairs the kernel gained last: reg3d_c = 2
+    (C = 32) and prior_scale = 3 with reg3d_c = 64 (C = 64). float32 on the
+    card against the same port on the CPU under phase 4's gates; one
+    kernel launch each."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import build_models
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+
+    for prior_scale, groups in ((2, 2), (3, 64)):
+        cfg = Config(compute_dtype="float32", prior_scale=prior_scale,
+                     reg3d_c=groups, num_depth_bins=8)
+        tag = f"prior_scale {prior_scale}, reg3d_c {groups}"
+        cpu_models = build_models(cfg, "cpu",
+                                  torch.Generator().manual_seed(0))
+        _temper_pose_head(cpu_models)
+        models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
+        batch = P.synthetic_batch(cfg, 1, seed=0, device="cpu")
+        want = P.forward_infer_fused(cpu_models, batch, cfg)
+        before = SW.launches
+        got = P.forward_infer_fused(models, P.as_batch(batch, "cuda"), cfg)
+        torch.cuda.synchronize()
+        if SW.launches != before + 1:
+            raise RuntimeError(f"{tag}: sweep_warp_corr launched "
+                               f"{SW.launches - before} times, expected 1")
+        failed = []
+        for key in ("disp_mono", "cost_prob", "depth_mvs", "depth_fused"):
+            if not torch.isfinite(got[key]).all():
+                failed.append(f"{key} not finite")
+            st = _stats(got[key], want[key])
+            log(f"[groups] {tag}: float32 card vs CPU {key}: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in st.items()))
+            failed += [f"{key}.{k} {st[k]:.3e} > {bound}"
+                       for (name, k), bound in GATES.items()
+                       if name == key and not st[k] <= bound]
+        if failed:
+            raise RuntimeError(f"{tag}: card vs CPU gates failed: "
+                               + "; ".join(failed))
+        log(f"[groups] {tag} (C={8 << prior_scale}, G={groups}): "
+            "phase 4's gates pass; sweep_warp_corr launched once")
 
 
 def phase_serve(cpu_models):
@@ -695,14 +790,15 @@ def _dsrc_check(name, src, sx, sy, g, bf16=False):
 
 def phase_sweep_warp(card):
     """The train step's sweep warp at the shipped train shape (batch 12):
-    forward in float32 and bfloat16, and its source gradient in both on
-    phase 7's coordinates (exact-bound and out-of-frame ones included;
-    float32 twice, for the run-to-run difference) and on KITTI-speed
-    coordinates, against the plain version's autograd. Times, in bfloat16:
-    the forward (bare launch), the whole backward (every launch
+    forward in float32 and bfloat16 against the plain version, and its
+    source gradient in both against the plain version's autograd, on phase
+    7's coordinates (exact-bound and out-of-frame ones included; the
+    float32 gradient twice, for the run-to-run difference) and on
+    KITTI-speed coordinates. Times, in bfloat16, each on both coordinate
+    sets: the forward (bare launch) and the whole backward (every launch
     SweepWarp.backward makes, on preallocated tensors: zero the float32
-    buffer, the kernel, the cast) on both coordinate sets, the plain
-    versions and the library calls. Returns the two kernels' summary
+    buffer, the kernel, the cast); then the plain versions and the library
+    calls. Returns the two kernels' summary
     records and ``gen``, for phase 7's image warp."""
     import torch
     import torch.nn.functional as F
@@ -721,11 +817,15 @@ def phase_sweep_warp(card):
         b, r, w, d, torch.Generator().manual_seed(3), 10.0))
     coords = {"phase 7": (sx, sy), "KITTI speed": fast}
 
-    err_fwd = _within("sweep_warp float32 forward", SW.sweep_warp(src, sx, sy),
-                      SW.sweep_warp_reference(src, sx, sy))
     src16 = src.bfloat16()
-    _within("sweep_warp bfloat16 forward", SW.sweep_warp(src16, sx, sy),
-            SW.sweep_warp_reference(src16.float(), sx, sy), bf16=True)
+    err_fwd = 0.0
+    for tag, (x, y) in coords.items():
+        err_fwd = max(err_fwd, _within(
+            f"sweep_warp float32 forward, {tag}", SW.sweep_warp(src, x, y),
+            SW.sweep_warp_reference(src, x, y)))
+        _within(f"sweep_warp bfloat16 forward, {tag}",
+                SW.sweep_warp(src16, x, y),
+                SW.sweep_warp_reference(src16.float(), x, y), bf16=True)
 
     err_bwd, runs = 0.0, []
     for tag, (x, y) in coords.items():
@@ -746,10 +846,10 @@ def phase_sweep_warp(card):
     out16 = torch.empty((b, d, r, w, c), dtype=torch.bfloat16, device=dev)
     dsrc16 = torch.empty((b, r, w, c), dtype=torch.bfloat16, device=dev)
     dsrc32 = torch.zeros((b, r, w, c), device=dev)
-    ms_fwd = device_ms(_bare(lib.sweep_warp_fwd_bf16, src16, sx, sy, out16,
-                             b, r, w, d, r, c))
-    ms_bwd = {}
+    ms_fwd, ms_bwd = {}, {}
     for tag, (x, y) in coords.items():
+        ms_fwd[tag] = device_ms(_bare(lib.sweep_warp_fwd_bf16, src16, x, y,
+                                      out16, b, r, w, d, r, c))
         launch = _bare(lib.sweep_warp_bwd_bf16, g16, x, y, dsrc32, b, r, w, d,
                        r, c)
 
@@ -775,9 +875,13 @@ def phase_sweep_warp(card):
     lib_bwd = device_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
         g_nchw, src_nchw, grid16, 0, 0, True, [True, False]))
     work_bwd = sweep_warp_work(b, r, w, c, d, r, 2, True)
+    work_fwd = sweep_warp_work(b, r, w, c, d, r, 2)
     log(f"[train-kernel] sweep_warp bfloat16 at {s}, device ms: forward "
-        f"kernel {ms_fwd:.4f}, plain {plain_fwd:.4f}, grid_sample "
-        f"{lib_fwd:.4f}; whole backward (zero, kernel, cast) "
+        "kernel " + ", ".join(f"{ms:.4f} on {k} coordinates"
+                              for k, ms in ms_fwd.items())
+        + f"; bound {bound(*work_fwd)['bound_ms']:.4f}; plain "
+        f"{plain_fwd:.4f}, grid_sample {lib_fwd:.4f}; whole backward (zero, "
+        "kernel, cast) "
         + ", ".join(f"{ms:.4f} on {k} coordinates" for k, ms in ms_bwd.items())
         + f"; bound {bound(*work_bwd)['bound_ms']:.4f}; plain "
         f"{plain_bwd:.4f}, grid_sampler_2d_backward {lib_bwd:.4f}; one "
@@ -785,8 +889,8 @@ def phase_sweep_warp(card):
         f"{card}")
     fwd = _record("sweep_warp", "sweep_warp.cu",
                   "movedepth_tpu/ops/pallas/sweep_warp.py:662", err_fwd,
-                  ms_fwd, plain_fwd, sweep_warp_work(b, r, w, c, d, r, 2),
-                  lib_fwd, call_fwd)
+                  ms_fwd["phase 7"], plain_fwd, work_fwd, lib_fwd, call_fwd)
+    fwd["ms_kitti_speed"] = ms_fwd["KITTI speed"]
     bwd = _record("sweep_warp_bwd", "sweep_warp.cu",
                   "movedepth_tpu/ops/pallas/sweep_warp.py:618", err_bwd,
                   ms_bwd["phase 7"], plain_bwd, work_bwd, lib_bwd, call_bwd)
@@ -1389,14 +1493,136 @@ def phase_variants():
     return rec
 
 
+# design steps of the sweep warp's forward (row 2): (name, planes a thread
+# (0: the PR 2 kernel), lanes share the taps, evict-first stores, mode bits
+# (1 no gather, 2 no coordinates, 4 store only, 8 walk all planes, 16 walk
+# with the next planes' gathers issued before the stores), threads a block)
+STEP_DESIGNS = [("previous", 0, 0, 0, 0, 256)] + [
+    (f"P{p}{' share' if sh else ''}{' stream' if st else ''} t{t}", p, sh, st,
+     0, t) for t in (256, 128) for p in (1, 2, 4, 8) for sh in (0, 1)
+    for st in (0, 1)] + [
+    (f"P{p}{' share' if sh else ''} walk{' stream' if st else ''} t128", p,
+     sh, st, 8, 128) for p, sh in ((1, 0), (2, 0), (2, 1), (4, 1))
+    for st in (0, 1)] + [
+    (f"P{p}{' share' if sh else ''} pipe{' stream' if st else ''} t128", p,
+     sh, st, 16, 128) for p, sh in ((1, 0), (2, 0), (2, 1), (4, 1))
+    for st in (0, 1)] + [
+    (f"P4 share stream t128, {name}", 4, 1, 1, mode, 128)
+    for name, mode in (("no gather", 1), ("no coordinates", 2),
+                       ("no gather, no coordinates", 3), ("store only", 4))]
+
+
+class _SwapFwd:
+    """The sweep-warp library with its bfloat16 forward replaced by a
+    design step (counting its launches)."""
+
+    def __init__(self, lib, design):
+        self._lib, self._design, self.calls = lib, design, 0
+
+    def sweep_warp_fwd_bf16(self, *args):
+        self.calls += 1
+        return self._lib.sweep_warp_fwd_step_bf16(*self._design, *args)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def phase_steps(card):
+    """Each design step of the sweep warp's forward in bfloat16 at the
+    train shape, on phase 7's coordinates and at KITTI speed: checked
+    against the plain version (output first filled with NaN), then timed by
+    device_ms; then train_step bf16 batch 12 with the shipped design with
+    and without evict-first stores, in turns."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import build_models
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    from movedepth_tpu_torch.train import state as S
+
+    s = TRAIN_SHAPE
+    b, r, w, c, d = s["B"], s["R"], s["W"], s["C"], s["D"]
+    gen = torch.Generator().manual_seed(1)
+    dev = torch.device("cuda")
+    sx, sy = _sweep_coords(b, r, w, d, gen)
+    _edge_cases(sx, sy, w, r)
+    src16 = torch.randn(b, r, w, c, generator=gen).bfloat16().to(dev)
+    coords = {"phase 7": (sx.to(dev), sy.to(dev)),
+              "KITTI speed": tuple(t.to(dev) for t in _sweep_coords(
+                  b, r, w, d, torch.Generator().manual_seed(3), 10.0))}
+    want = {k: SW.sweep_warp_reference(src16.float(), x, y)
+            for k, (x, y) in coords.items()}
+    lib = SW.warp_library()
+    out = torch.empty((b, d, r, w, c), dtype=torch.bfloat16, device=dev)
+    rows = []
+    for name, *design in STEP_DESIGNS:
+        ms = {}
+        for tag, (x, y) in coords.items():
+            out.fill_(float("nan"))
+            fn = _bare(lib.sweep_warp_fwd_step_bf16, *design, src16, x, y,
+                       out, b, r, w, d, r, c)
+            if design[3] & 7 == 0:  # the ablations compute wrong results
+                _within(f"step {name}, {tag}", out, want[tag], bf16=True)
+            ms[tag] = device_ms(fn)
+        rows.append((name, design, ms))
+        log(f"[steps] {name}: " + ", ".join(
+            f"{v:.4f} ms on {k}" for k, v in ms.items()) + f"; {card}")
+    zero_ms = device_ms(out.zero_)
+    log(f"[steps] yardstick: out.zero_() on the {out.numel() * 2 / 1e6:.1f} "
+        f"MB output {zero_ms:.4f} ms; {card}")
+    log("[steps] " + json.dumps({n: m for n, _, m in rows}))
+    del want, out
+    # the fastest design that stores evict-first, against its twin
+    best = min((r for r in rows if r[1][2] and r[1][3] & 7 == 0
+                and r[1][0]), key=lambda r: r[2]["phase 7"])[1]
+    twin = (best[0], best[1], 0, best[3], best[4])
+
+    cfg = Config()
+    cpu_models = build_models(Config(compute_dtype="float32"), "cpu",
+                              torch.Generator().manual_seed(0))
+    _boost_pose_head(cpu_models)
+    batch = P.synthetic_batch(cfg, b, seed=1, device="cuda")
+    draws = P.sample_draws(cfg, b, torch.Generator("cuda").manual_seed(1),
+                           device="cuda")
+    shipped = SW.warp_library
+    times = {"evict-first": [], "plain stores": []}
+    for label, design in (("evict-first", tuple(best)),
+                          ("plain stores", twin)) * 2:
+        swap = _SwapFwd(lib, design)
+        SW.warp_library = lambda swap=swap: swap
+        try:
+            models = {k: copy.deepcopy(m).cuda()
+                      for k, m in cpu_models.items()}
+            opt, sched = S.create_optimizer(models, cfg)
+            ms = cuda_ms(lambda: S.train_step(models, opt, sched, batch, cfg,
+                                              True, draws), runs=10, warmup=3)
+        finally:
+            SW.warp_library = shipped
+        if swap.calls == 0:
+            raise RuntimeError("the train step never launched the step")
+        times[label].append(ms)
+        log(f"[steps] train_step bf16 batch {b}, row 2 {design} "
+            f"({label}): {ms:.3f} ms/step (median of 10); {card}")
+    log(f"[steps] train_step in turns: {times}; {card}")
+
+
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
+        return
+    if sys.argv[1:] == ["--steps"]:
+        import torch
+        card = phase_device()
+        phase_build()
+        _check_pairs(torch.device("cuda"))
+        phase_steps(card)
+        log("[steps] done")
         return
     card = phase_device()
     phase_build()
     kernel = phase_kernel(card)
     cpu_models = phase_main_path()
+    phase_group_configs()
     kernel["launches"] = phase_serve(cpu_models)
     phase_throughput(cpu_models, card)
     sweep_kernels, gen = phase_sweep_warp(card)

@@ -53,8 +53,10 @@ struct Vec {
   static constexpr int N = 16 / sizeof(T);
 };
 
-// N values of T from floats, rounded once, N * sizeof(T) <= 16 bytes (8 or
-// 16 bytes in one store, else one value at a time).
+// N values of T from floats, rounded once, N * sizeof(T) <= 16 bytes (4, 8
+// or 16 bytes in one store, else one value at a time). p must be aligned to
+// N * sizeof(T): a point's N outputs at offset point * N of an aligned
+// buffer are.
 template <typename T, int N>
 __device__ __forceinline__ void store_small(T* __restrict__ p,
                                             const float* src) {
@@ -66,6 +68,11 @@ __device__ __forceinline__ void store_small(T* __restrict__ p,
     h[0] = __floats2bfloat162_rn(src[0], src[1]);
     h[1] = __floats2bfloat162_rn(src[2], src[3]);
     *reinterpret_cast<uint2*>(p) = u;
+  } else if constexpr (N == 2 && sizeof(T) == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) =
+        __floats2bfloat162_rn(src[0], src[1]);
+  } else if constexpr (N == 2 && sizeof(T) == 4) {
+    *reinterpret_cast<float2*>(p) = make_float2(src[0], src[1]);
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) {

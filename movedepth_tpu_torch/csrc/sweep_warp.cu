@@ -51,13 +51,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kAhead = 4;  // planes whose loads the backward issues together
 
-// src (B,R,W,C) T, sx/sy (B,D,H,W) f32 -> out (B,D,H,W,C) T.
+// The PR 2 forward, timed as the design step "previous": one thread a
+// 16-byte chunk of one point, 64-bit index division.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    sweep_warp_fwd_kernel(const T* __restrict__ src,
-                          const float* __restrict__ sx,
-                          const float* __restrict__ sy, T* __restrict__ out,
-                          long long n, int R, int W, int DHW, int C) {
+    sweep_warp_fwd_prev_kernel(const T* __restrict__ src,
+                               const float* __restrict__ sx,
+                               const float* __restrict__ sy,
+                               T* __restrict__ out, long long n, int R, int W,
+                               int DHW, int C) {
   constexpr int V = mdt::Vec<T>::N;
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -81,6 +83,271 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < V; ++j) acc[j] = fmaf(t.w[k], v[j], acc[j]);
   }
   mdt::store16(out + p * C + c0, acc);
+}
+
+// 16 raw bytes of T: 4 float32 or 8 bfloat16 values, unconverted.
+__device__ __forceinline__ uint4 load_raw(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void unpack(uint4 v, float* dst, float) {
+  dst[0] = __uint_as_float(v.x);
+  dst[1] = __uint_as_float(v.y);
+  dst[2] = __uint_as_float(v.z);
+  dst[3] = __uint_as_float(v.w);
+}
+
+__device__ __forceinline__ void unpack(uint4 v, float* dst, __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+// 16 bytes of T from floats, rounded once; kStream: evict-first (__stcs).
+template <bool kStream>
+__device__ __forceinline__ void store_out(float* p, const float* v) {
+  const float4 f = make_float4(v[0], v[1], v[2], v[3]);
+  if constexpr (kStream)
+    __stcs(reinterpret_cast<float4*>(p), f);
+  else
+    *reinterpret_cast<float4*>(p) = f;
+}
+
+template <bool kStream>
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  if constexpr (kStream)
+    __stcs(reinterpret_cast<uint4*>(p), u);
+  else
+    *reinterpret_cast<uint4*>(p) = u;
+}
+
+// Ablation and walk bits of a design step (kMode).
+enum Mode : int {
+  kNoGather = 1,   // every tap reads the lane's chunk of source pixel 0
+  kNoCoords = 2,   // coordinates made up from (x, h, d), not read
+  kStoreOnly = 4,  // no loads and no arithmetic: zeros stored
+  kWalk = 8,       // a thread walks all D planes, P at a time, and loads
+                   // the next P planes' coordinates before its stores
+  kPipe = 16,      // kWalk, with the next P planes' gathers also issued
+                   // before the stores and coordinates 2P planes ahead
+};
+
+// Coordinate slots of a thread: its P planes (kL == 0), or the planes
+// j, j + kL, ... whose taps lane j computes for the kL lanes of its point.
+template <int P, int kL>
+__host__ __device__ constexpr int coord_slots() {
+  return kL == 0 ? P : (P + kL - 1) / kL;
+}
+
+template <int P, int kL, int kMode>
+__device__ __forceinline__ void load_coords(const float* __restrict__ sx,
+                                            const float* __restrict__ sy,
+                                            size_t p0, size_t hw, int d0,
+                                            int D, int lane, int x, int h,
+                                            float* xs, float* ys) {
+  constexpr int N = coord_slots<P, kL>();
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const int u = kL == 0 ? r : min(r * kL + lane, P - 1);
+    const int du = min(u, D - 1 - d0);
+    if constexpr ((kMode & kNoCoords) != 0) {
+      xs[r] = x + 0.37f * (d0 + du) - 1.5f;
+      ys[r] = h + 0.21f;
+    } else {
+      xs[r] = sx[p0 + du * hw];
+      ys[r] = sy[p0 + du * hw];
+    }
+  }
+}
+
+// The tap weights and gathered source chunks of P planes.
+template <int P>
+struct Gathered {
+  float w[P][4];
+  uint4 v[P][4];
+};
+
+// Taps of the P planes from their coordinates (kL > 0: computed by one lane
+// each and handed round by shuffles), then every gather issued at once.
+template <typename T, int P, int kL, int kMode>
+__device__ __forceinline__ void gather(Gathered<P>& g, const float* xs,
+                                       const float* ys,
+                                       const T* __restrict__ s, int W, int R,
+                                       int C) {
+  constexpr int N = coord_slots<P, kL>();
+  int mx[N], my[N];
+  float mw[N][4];
+  unsigned mv[N];  // bit k: tap k inside the frame
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const mdt::Taps t = mdt::zeros_taps(xs[r], ys[r], W, R);
+    mx[r] = t.x0;
+    my[r] = t.y0;
+    mv[r] = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      mw[r][k] = t.w[k];
+      mv[r] |= t.valid[k] ? 1u << k : 0u;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    int x0, y0;
+    unsigned valid;
+    if constexpr (kL == 0) {
+      x0 = mx[u];
+      y0 = my[u];
+      valid = mv[u];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g.w[u][k] = mw[u][k];
+    } else {
+      const int r = u / kL, from = u % kL;
+      x0 = __shfl_sync(0xffffffffu, mx[r], from, kL);
+      y0 = __shfl_sync(0xffffffffu, my[r], from, kL);
+      valid = __shfl_sync(0xffffffffu, mv[r], from, kL);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        g.w[u][k] = __shfl_sync(0xffffffffu, mw[r][k], from, kL);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long off =
+          static_cast<long long>(y0 + (k >> 1)) * W + x0 + (k & 1);
+      const T* q = (kMode & kNoGather) != 0 ? s : s + off * C;
+      g.v[u][k] = (valid >> k) & 1u ? load_raw(q)
+                                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// The P planes' weighted sums, rounded once and stored (planes below D).
+template <typename T, int P, bool kStream>
+__device__ __forceinline__ void blend_store(const Gathered<P>& g,
+                                            T* __restrict__ o, size_t hwc,
+                                            int d0, int D) {
+  constexpr int V = mdt::Vec<T>::N;
+#pragma unroll
+  for (int u = 0; u < P; ++u) {
+    if (d0 + u >= D) break;
+    float acc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float f[V];
+      unpack(g.v[u][k], f, T());
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = fmaf(g.w[u][k], f[j], acc[j]);
+    }
+    store_out<kStream>(o + u * hwc, acc);
+  }
+}
+
+// src (B,R,W,C) T, sx/sy (B,D,H,W) f32 -> out (B,D,H,W,C) T. Block
+// (lanes, pixels): threadIdx.x a 16-byte chunk, threadIdx.y a pixel of the
+// x-tile; grid (x-tiles, plane group * H + h, b), strided past 65535. A
+// thread covers P planes of its (pixel, chunk), or all D with kWalk. kL > 0:
+// the kL == C / V lanes of a point split the tap arithmetic.
+template <typename T, int P, int kL, int kMode, bool kStream>
+__global__ void __launch_bounds__(kThreads)
+    sweep_warp_fwd_kernel(const T* __restrict__ src,
+                          const float* __restrict__ sx,
+                          const float* __restrict__ sy, T* __restrict__ out,
+                          int B, int R, int W, int D, int H, int C) {
+  constexpr int V = mdt::Vec<T>::N;
+  constexpr bool kAll = (kMode & (kWalk | kPipe)) != 0;
+  constexpr int N = coord_slots<P, kL>();
+  const int L = C / V;
+  const int rows = (kAll ? 1 : (D + P - 1) / P) * H;
+  const size_t hw = static_cast<size_t>(H) * W;
+  const int x_ = blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = x_ < W;
+  const int x = live ? x_ : W - 1;  // dead pixels join the shuffles
+  for (int b = blockIdx.z; b < B; b += gridDim.z)
+    for (int y = blockIdx.y; y < rows; y += gridDim.y) {
+      const int g = y / H;
+      const int h = y - g * H;
+      const size_t p00 = static_cast<size_t>(b) * D * hw +
+                         static_cast<size_t>(h) * W + x;  // plane 0
+      for (int lane = threadIdx.x; lane < L; lane += blockDim.x) {
+        const int c0 = lane * V;
+        const T* __restrict__ s =
+            src + static_cast<size_t>(b) * R * W * C + c0;
+        int d0 = g * P;
+        if constexpr ((kMode & kStoreOnly) != 0) {
+          if (!live) continue;
+          Gathered<P> z;
+#pragma unroll
+          for (int u = 0; u < P; ++u)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              z.w[u][k] = 0.0f;
+              z.v[u][k] = make_uint4(0u, 0u, 0u, 0u);
+            }
+          for (; d0 < D; d0 += P) {
+            blend_store<T, P, kStream>(z, out + (p00 + d0 * hw) * C + c0,
+                                       hw * C, d0, D);
+            if (!kAll) break;
+          }
+          continue;
+        }
+        float xs[N], ys[N];
+        load_coords<P, kL, kMode>(sx, sy, p00 + d0 * hw, hw, d0, D, lane, x,
+                                  h, xs, ys);
+        if constexpr ((kMode & kPipe) != 0) {
+          float xn[N], yn[N];
+          if (d0 + P < D)
+            load_coords<P, kL, kMode>(sx, sy, p00 + (d0 + P) * hw, hw, d0 + P,
+                                      D, lane, x, h, xn, yn);
+          Gathered<P> cur;
+          gather<T, P, kL, kMode>(cur, xs, ys, s, W, R, C);
+          for (;;) {
+            const bool more = d0 + P < D;
+            Gathered<P> nxt;
+            if (more) {
+              if (d0 + 2 * P < D)
+                load_coords<P, kL, kMode>(sx, sy, p00 + (d0 + 2 * P) * hw, hw,
+                                          d0 + 2 * P, D, lane, x, h, xs, ys);
+              gather<T, P, kL, kMode>(nxt, xn, yn, s, W, R, C);
+            }
+            if (live)
+              blend_store<T, P, kStream>(cur, out + (p00 + d0 * hw) * C + c0,
+                                         hw * C, d0, D);
+            if (!more) break;
+            cur = nxt;
+#pragma unroll
+            for (int r = 0; r < N; ++r) {
+              xn[r] = xs[r];
+              yn[r] = ys[r];
+            }
+            d0 += P;
+          }
+          continue;
+        }
+        for (;;) {
+          Gathered<P> gd;
+          gather<T, P, kL, kMode>(gd, xs, ys, s, W, R, C);
+          const bool more = kAll && d0 + P < D;
+          if (more)
+            load_coords<P, kL, kMode>(sx, sy, p00 + (d0 + P) * hw, hw,
+                                      d0 + P, D, lane, x, h, xs, ys);
+          if (live)
+            blend_store<T, P, kStream>(gd, out + (p00 + d0 * hw) * C + c0,
+                                       hw * C, d0, D);
+          if (!more) break;
+          d0 += P;
+        }
+      }
+    }
 }
 
 // g (B,D,H,W,C) T, sx/sy (B,D,H,W) f32 -> dsrc (B,R,W,C) f32 (pre-zeroed);
@@ -158,18 +425,83 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch_fwd(const void* src, const void* sx, const void* sy, void* out,
-               int B, int R, int W, int D, int H, int C,
-               cudaStream_t stream) {
-  if (C <= 0 || C % mdt::Vec<T>::N) return static_cast<int>(cudaErrorInvalidValue);
+int launch_prev(const void* src, const void* sx, const void* sy, void* out,
+                int B, int R, int W, int D, int H, int C,
+                cudaStream_t stream) {
   const long long n = static_cast<long long>(B) * D * H * W * (C / mdt::Vec<T>::N);
-  if (n == 0) return 0;
   const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
-  sweep_warp_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
+  sweep_warp_fwd_prev_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(src), static_cast<const float*>(sx),
       static_cast<const float*>(sy), static_cast<T*>(out), n, R, W, D * H * W,
       C);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int P, int kL, int kMode, bool kStream>
+int launch_design(const void* src, const void* sx, const void* sy, void* out,
+                  int B, int R, int W, int D, int H, int C, int threads,
+                  cudaStream_t stream) {
+  const int L = C / mdt::Vec<T>::N;
+  if (kL != 0 && L != kL) return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = min(L, threads);
+  const int pixels = max(1, threads / lanes);
+  const int rows = ((kMode & (kWalk | kPipe)) != 0 ? 1 : (D + P - 1) / P) * H;
+  const dim3 block(lanes, pixels);
+  const dim3 grid((W + pixels - 1) / pixels, min(rows, 65535), min(B, 65535));
+  sweep_warp_fwd_kernel<T, P, kL, kMode, kStream>
+      <<<grid, block, 0, stream>>>(
+          static_cast<const T*>(src), static_cast<const float*>(sx),
+          static_cast<const float*>(sy), static_cast<T*>(out), B, R, W, D, H,
+          C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shipped design.
+constexpr int kFwdPlanes = 4;
+constexpr int kFwdThreads = 128;
+
+template <typename T>
+int launch_fwd(const void* src, const void* sx, const void* sy, void* out,
+               int B, int R, int W, int D, int H, int C,
+               cudaStream_t stream) {
+  if (C <= 0 || C % mdt::Vec<T>::N) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(B) * D * H * W == 0) return 0;
+  return launch_design<T, kFwdPlanes, 0, 0, true>(
+      src, sx, sy, out, B, R, W, D, H, C, kFwdThreads, stream);
+}
+
+// A design step in bfloat16: planes 0 the PR 2 kernel, else P planes a
+// thread; share: the 4 lanes of a C=32 point split the tap arithmetic;
+// stream: evict-first stores; mode: Mode bits; threads a block.
+int launch_step(int planes, int share, int stream_hint, int mode, int threads,
+                const void* src, const void* sx, const void* sy, void* out,
+                int B, int R, int W, int D, int H, int C,
+                cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  if (C <= 0 || C % mdt::Vec<T>::N || threads < 1 || threads > kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(B) * D * H * W == 0) return 0;
+  if (planes == 0)
+    return launch_prev<T>(src, sx, sy, out, B, R, W, D, H, C, stream);
+#define STEP(p, l, m, st)                                                  \
+  if (planes == p && (share ? 4 : 0) == l && mode == m &&                 \
+      (stream_hint != 0) == st)                                           \
+    return launch_design<T, p, l, m, st>(src, sx, sy, out, B, R, W, D, H, \
+                                         C, threads, stream);
+#define STEP_P(p) STEP(p, 0, 0, false) STEP(p, 0, 0, true) \
+  STEP(p, 4, 0, false) STEP(p, 4, 0, true)
+  STEP_P(1) STEP_P(2) STEP_P(4) STEP_P(8)
+#define STEP_W(p, l) STEP(p, l, kWalk, false) STEP(p, l, kWalk, true)
+  STEP_W(1, 0) STEP_W(2, 0) STEP_W(2, 4) STEP_W(4, 4)
+#undef STEP_W
+#define STEP_PIPE(p, l) STEP(p, l, kPipe, false) STEP(p, l, kPipe, true)
+  STEP_PIPE(1, 0) STEP_PIPE(2, 0) STEP_PIPE(2, 4) STEP_PIPE(4, 4)
+#undef STEP_PIPE
+  STEP(4, 4, kNoGather, true) STEP(4, 4, kNoCoords, true)
+  STEP(4, 4, kNoGather | kNoCoords, true) STEP(4, 4, kStoreOnly, true)
+#undef STEP_P
+#undef STEP
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -203,6 +535,15 @@ int sweep_warp_fwd_bf16(const void* src, const void* sx, const void* sy,
                         void* stream) {
   return launch_fwd<__nv_bfloat16>(src, sx, sy, out, B, R, W, D, H, C,
                                    static_cast<cudaStream_t>(stream));
+}
+
+int sweep_warp_fwd_step_bf16(int planes, int share, int stream_hint,
+                             int mode, int threads, const void* src,
+                             const void* sx, const void* sy, void* out, int B,
+                             int R, int W, int D, int H, int C, void* stream) {
+  return launch_step(planes, share, stream_hint, mode, threads, src, sx, sy,
+                     out, B, R, W, D, H, C,
+                     static_cast<cudaStream_t>(stream));
 }
 
 int sweep_warp_bwd_f32(const void* g, const void* sx, const void* sy,

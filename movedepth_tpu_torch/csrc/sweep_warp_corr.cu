@@ -45,37 +45,95 @@
 // later. The kernel itself is in sweep_warp_corr.cuh, shared with the
 // stage ablations of sweep_warp_corr_variants.cu.
 
+// Build: nvcc compiles this file once per C of the FPN's widths with
+// -DSWC_C=<C> (that C's (C, G) instantiations) and once without (the C
+// interface), in parallel, and links the units into one library
+// (native.UNITS).
+
 #include "sweep_warp_corr.cuh"
 
-namespace {
+// The (C, G) pairs compiled in: every pair the JAX package fuses at the
+// FPN's matching widths (8, 16, 32, 64 channels at prior scales 0-3):
+// G divides C and C/G is a power of two. G < V (1 and 2; 4 in bfloat16)
+// sums inside the lane and lane 0 stores; G = C needs no shuffle.
+#define SWC_PAIRS(X)                                                     \
+  X(8, 1) X(8, 2) X(8, 4) X(8, 8) X(16, 1) X(16, 2) X(16, 4) X(16, 8)    \
+      X(16, 16) X(32, 1) X(32, 2) X(32, 4) X(32, 8) X(32, 16) X(32, 32)  \
+      X(64, 1) X(64, 2) X(64, 4) X(64, 8) X(64, 16) X(64, 32) X(64, 64)
 
-using mdt_swc::grid_blocks;
-using mdt_swc::kThreads;
-using mdt_swc::sweep_warp_corr_kernel;
+namespace mdt_swc {
 
-// The (C, G) pairs compiled in: the FPN's matching widths at prior scales
-// 0-3 (8, 16, 32, 64 channels) against the usual group counts.
-#define SWC_PAIRS(X)                                                  \
-  X(8, 4) X(8, 8) X(16, 4) X(16, 8) X(16, 16) X(32, 4) X(32, 8)      \
-      X(32, 16) X(32, 32) X(64, 4) X(64, 8) X(64, 16) X(64, 32)
+// The kernel of the pair (C, G) in T (bfloat16 if bf16, else float32);
+// cudaErrorInvalidValue if the pair is not built. Defined, for one C, in
+// the unit compiled with -DSWC_C=C.
+template <int C>
+int launch_c(bool bf16, const void* src, const void* ref, const void* sx,
+             const void* sy, void* out, int B, int R, int W, int D, int H,
+             int G, cudaStream_t stream);
 
-template <typename T>
-int launch(const void* src, const void* ref, const void* sx, const void* sy,
-           void* out, int B, int R, int W, int D, int H, int C, int G,
-           cudaStream_t stream) {
-  if (static_cast<long long>(B) * H * W == 0 || D == 0) return 0;
-#define SWC_CASE(c, g)                                                    \
-  if (C == c && G == g) {                                                 \
-    sweep_warp_corr_kernel<T, c, g>                                       \
-        <<<grid_blocks<T, c>(B, H, W, D), kThreads, 0, stream>>>(         \
-        static_cast<const T*>(src), static_cast<const T*>(ref),           \
-        static_cast<const float*>(sx), static_cast<const float*>(sy),     \
-        static_cast<T*>(out), B, R, W, D, H);                             \
-    return static_cast<int>(cudaGetLastError());                          \
+#ifdef SWC_C
+
+template <typename T, int C, int G>
+int launch_pair(const void* src, const void* ref, const void* sx,
+                const void* sy, void* out, int B, int R, int W, int D, int H,
+                cudaStream_t stream) {
+  sweep_warp_corr_kernel<T, C, G>
+      <<<grid_blocks<T, C>(B, H, W, D), kThreads, 0, stream>>>(
+          static_cast<const T*>(src), static_cast<const T*>(ref),
+          static_cast<const float*>(sx), static_cast<const float*>(sy),
+          static_cast<T*>(out), B, R, W, D, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int launch_c(bool bf16, const void* src, const void* ref, const void* sx,
+             const void* sy, void* out, int B, int R, int W, int D, int H,
+             int G, cudaStream_t stream) {
+#define SWC_CASE(c, g)                                                      \
+  if constexpr (c == C) {                                                   \
+    if (G == g)                                                             \
+      return bf16 ? launch_pair<__nv_bfloat16, c, g>(src, ref, sx, sy, out, \
+                                                     B, R, W, D, H, stream) \
+                  : launch_pair<float, c, g>(src, ref, sx, sy, out, B, R,   \
+                                             W, D, H, stream);              \
   }
   SWC_PAIRS(SWC_CASE)
 #undef SWC_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template int launch_c<SWC_C>(bool, const void*, const void*, const void*,
+                             const void*, void*, int, int, int, int, int, int,
+                             cudaStream_t);
+
+#endif  // SWC_C
+
+}  // namespace mdt_swc
+
+#ifndef SWC_C
+
+namespace {
+
+int launch(bool bf16, const void* src, const void* ref, const void* sx,
+           const void* sy, void* out, int B, int R, int W, int D, int H,
+           int C, int G, cudaStream_t stream) {
+  if (static_cast<long long>(B) * H * W == 0 || D == 0) return 0;
+  switch (C) {
+    case 8:
+      return mdt_swc::launch_c<8>(bf16, src, ref, sx, sy, out, B, R, W, D, H,
+                                  G, stream);
+    case 16:
+      return mdt_swc::launch_c<16>(bf16, src, ref, sx, sy, out, B, R, W, D,
+                                   H, G, stream);
+    case 32:
+      return mdt_swc::launch_c<32>(bf16, src, ref, sx, sy, out, B, R, W, D,
+                                   H, G, stream);
+    case 64:
+      return mdt_swc::launch_c<64>(bf16, src, ref, sx, sy, out, B, R, W, D,
+                                   H, G, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -93,15 +151,17 @@ int sweep_warp_corr_supported(int C, int G) {
 int sweep_warp_corr_f32(const void* src, const void* ref, const void* sx,
                         const void* sy, void* out, int B, int R, int W, int D,
                         int H, int C, int G, void* stream) {
-  return launch<float>(src, ref, sx, sy, out, B, R, W, D, H, C, G,
-                       static_cast<cudaStream_t>(stream));
+  return launch(false, src, ref, sx, sy, out, B, R, W, D, H, C, G,
+                static_cast<cudaStream_t>(stream));
 }
 
 int sweep_warp_corr_bf16(const void* src, const void* ref, const void* sx,
                          const void* sy, void* out, int B, int R, int W,
                          int D, int H, int C, int G, void* stream) {
-  return launch<__nv_bfloat16>(src, ref, sx, sy, out, B, R, W, D, H, C, G,
-                               static_cast<cudaStream_t>(stream));
+  return launch(true, src, ref, sx, sy, out, B, R, W, D, H, C, G,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"
+
+#endif  // !SWC_C

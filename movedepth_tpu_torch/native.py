@@ -6,7 +6,10 @@ shared headers ``csrc/*.cuh``. At first use it is compiled for Hopper
 the root of the checkout. The library's file name carries a hash of the
 source, the headers and the flags, so an edited source rebuilds and an
 unchanged one loads as it is. :func:`build_all` compiles several sources
-at once, one nvcc process each.
+at once, one nvcc process each. A source listed in ``UNITS`` is compiled
+once per entry, each time with that entry's ``-D`` flags, as separate
+translation units that nvcc builds in parallel, then linked into one
+library.
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "movedepth_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# name -> the -D flags of each translation unit of csrc/<name>.cu: the
+# warp-correlate kernel's (C, G) instantiations, one unit per C beside the
+# unit of its C interface
+UNITS = {"sweep_warp_corr": [[]] + [[f"-DSWC_C={c}"] for c in (8, 16, 32, 64)]}
 
 _libs: dict = {}
 # name -> (build seconds, nvcc's -Xptxas -v report) for builds in this process
@@ -45,40 +53,69 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         key += header.read_bytes()
     key += " ".join(NVCC_FLAGS).encode()
+    key += repr(UNITS.get(name)).encode()
     return BUILD_DIR / f"{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
+
+
+def _start(args, suffix):
+    """An nvcc process writing to a new temporary file under BUILD_DIR:
+    (its path, the process)."""
+    fd, tmp = tempfile.mkstemp(suffix=suffix, dir=BUILD_DIR)
+    os.close(fd)
+    return tmp, subprocess.Popen([nvcc(), *args, "-o", tmp],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
 
 
 def build_all(names) -> None:
     """Compile every missing library of ``names`` in parallel: all nvcc
-    processes start together. Raises if any build fails."""
+    processes (one per source, or per translation unit of a source in
+    ``UNITS``) start together; a library of several units is linked once
+    they are done. Raises if any build fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    jobs, tmps = {}, []
     t0 = time.perf_counter()
     try:
         for name in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.Popen(
-                [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            jobs.append((name, tmp, proc))
+            src = str(CSRC / f"{name}.cu")
+            if name in UNITS:
+                flags = [f for f in NVCC_FLAGS if f != "-shared"]
+                jobs[name] = [_start([*flags, *unit, "-c", src], ".o")
+                              for unit in UNITS[name]]
+            else:
+                jobs[name] = [_start([*NVCC_FLAGS, src], ".so")]
+            tmps += [tmp for tmp, _ in jobs[name]]
         failed = []
-        for name, tmp, proc in jobs:
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed on csrc/{name}.cu:\n{err}")
+        for name, units in jobs.items():
+            errs = [proc.communicate()[1] for _, proc in units]
+            bad = [err for (_, proc), err in zip(units, errs)
+                   if proc.returncode != 0]
+            if bad:
+                failed += [f"nvcc failed on csrc/{name}.cu:\n{err}"
+                           for err in bad]
                 continue
+            out = units[0][0]
+            if name in UNITS:
+                out, link = _start(["-shared", *(t for t, _ in units)],
+                                   ".so")
+                tmps.append(out)
+                _, err = link.communicate()
+                if link.returncode != 0:
+                    failed.append(f"linking csrc/{name}.cu failed:\n{err}")
+                    continue
             # atomic: a concurrent build never sees half a file
-            os.replace(tmp, library_path(name))
-            build_reports[name] = (time.perf_counter() - t0, err)
+            os.replace(out, library_path(name))
+            build_reports[name] = (time.perf_counter() - t0, "".join(errs))
     finally:
-        for _, tmp, proc in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for units in jobs.values():
+            for _, proc in units:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for tmp in tmps:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     if failed:

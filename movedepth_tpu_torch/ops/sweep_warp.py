@@ -40,6 +40,8 @@ _SIGNATURES = {
     "sweep_warp_corr_supported": ([ctypes.c_int] * 2, ctypes.c_int)}
 _WARP_SIGNATURES = {f"sweep_warp_{d}_{t}": (_WARP_ARGTYPES, ctypes.c_int)
                     for d in ("fwd", "bwd") for t in ("f32", "bf16")}
+_WARP_SIGNATURES["sweep_warp_fwd_step_bf16"] = (
+    [ctypes.c_int] * 5 + _WARP_ARGTYPES, ctypes.c_int)
 
 
 def grid_to_pixel(grid, height, width):
@@ -162,7 +164,10 @@ def sweep_warp_corr(src_feat, ref_feat, sx, sy, groups: int):
     _check_kernel_inputs(src_feat, ref_feat, sx, sy)
     lib = kernel_library()
     if not lib.sweep_warp_corr_supported(c, groups):
-        raise ValueError(f"the kernel is not built for C={c}, G={groups}")
+        raise ValueError(
+            f"the kernel is built for C in {{8, 16, 32, 64}} channels and G "
+            f"groups that divide C with C/G a power of two; got C={c}, "
+            f"G={groups}")
     out = torch.empty((b, d, h, w, groups), dtype=src_feat.dtype,
                       device=device)
     fn = (lib.sweep_warp_corr_bf16 if src_feat.dtype == torch.bfloat16

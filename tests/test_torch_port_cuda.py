@@ -69,8 +69,10 @@ def test_kernel_matches_plain_version(device, dtype):
     assert torch.all((got.float() - want).abs() <= tol)
 
 
-_SWC_PAIRS = [(8, 4), (8, 8), (16, 4), (16, 8), (16, 16), (32, 4), (32, 8),
-              (32, 16), (32, 32), (64, 4), (64, 8), (64, 16), (64, 32)]
+# every pair the JAX package fuses at the FPN's widths: G | C, C/G a power
+# of two
+_SWC_PAIRS = [(c, c >> k) for c in (8, 16, 32, 64)
+              for k in range(c.bit_length())]
 
 
 def _bf16_ulp(x):
@@ -97,6 +99,18 @@ def test_kernel_every_channel_group_pair(device, c, groups):
                 tol = tol + _bf16_ulp(want)
             assert got.dtype == dtype and got.shape == want.shape
             assert torch.all((got.float() - want).abs() <= tol), (dtype, b)
+
+
+@pytest.mark.parametrize("c,groups", [(24, 8), (32, 3), (128, 16), (4, 4)])
+def test_kernel_refuses_pairs_outside_the_rule(device, c, groups):
+    """C/G not a power of two, G not dividing C, or C not built: a
+    ValueError that states the rule, and no launch."""
+    src, ref, sx, sy = (t.to(device) for t in _sweep_inputs(h=8, w=16, c=c,
+                                                            d=8))
+    before = SW.launches
+    with pytest.raises(ValueError, match="divide"):
+        SW.sweep_warp_corr(src, ref, sx, sy, groups)
+    assert SW.launches == before
 
 
 def test_kernel_out_of_frame_gives_exact_zeros(device):
@@ -184,6 +198,31 @@ def test_sweep_warp_bwd_widths(device, c, dtype):
     sx, sy = _warp_coords(sx, sy, src.shape[2], src.shape[1])
     src, sx, sy = (t.to(device) for t in (src.to(dtype), sx, sy))
     assert _check_dsrc(src, sx, sy) == 1
+
+
+@pytest.mark.parametrize("c,dtype", _BWD_WIDTHS)
+def test_sweep_warp_fwd_widths(device, c, dtype):
+    """The forward kernel at every channel width: exact-bound and
+    out-of-frame points, a 157-pixel row (no multiple of any x-tile), 10
+    planes (no multiple of the planes a thread walks), batch 2 and 1; one
+    launch each, within 1e-5 of the range (plus one bf16 ulp in bfloat16)
+    of the plain version."""
+    h, w = 24, 157
+    src, _, sx, sy = _sweep_inputs(d=10, h=h, w=w, c=c)
+    sx, sy = _warp_coords(sx, sy, w, h)
+    for b in (2, 1):
+        args = [t[:b].contiguous().to(device) for t in (src.to(dtype), sx,
+                                                        sy)]
+        before = SW.warp_launches
+        got = SW.sweep_warp(*args)
+        assert SW.warp_launches == before + 1
+        want = SW.sweep_warp_reference(args[0].float(), *args[1:])
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        tol = 1e-5 * want.abs().max()
+        if dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(want)
+        assert torch.all((got.float() - want).abs() <= tol), b
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -506,6 +545,30 @@ def test_forward_infer_fused_card_matches_cpu(device):
     cfg = Config(height=64, width=96, compute_dtype="float32")
     models = build_models(cfg, "cpu")
     batch = P.synthetic_batch(cfg, 2, seed=11, device="cpu")
+    want = P.forward_infer_fused(models, batch, cfg)
+    models = {k: m.to(device) for k, m in models.items()}
+    before = SW.launches
+    got = P.forward_infer_fused(
+        models, {k: v.to(device) for k, v in batch.items()}, cfg)
+    assert SW.launches == before + 1
+    for key in ("disp_mono", "cost_prob", "trust_mono"):
+        np.testing.assert_allclose(got[key].cpu().numpy(),
+                                   want[key].numpy(), rtol=1e-4, atol=1e-5)
+    rel = ((got["depth_mvs"].cpu() - want["depth_mvs"]).abs()
+           / want["depth_mvs"].abs())
+    assert rel.mean().item() <= 6e-3
+
+
+@pytest.mark.parametrize("prior_scale,groups", [(2, 2), (3, 64)])
+def test_forward_infer_fused_card_matches_cpu_group_configs(device,
+                                                            prior_scale,
+                                                            groups):
+    """The main path at reg3d_c = 2 (C = 32) and at prior_scale = 3 with
+    reg3d_c = 64 (C = 64), batch 1, 8 bins: the card against the CPU."""
+    cfg = Config(height=64, width=128, compute_dtype="float32",
+                 prior_scale=prior_scale, reg3d_c=groups, num_depth_bins=8)
+    models = build_models(cfg, "cpu")
+    batch = P.synthetic_batch(cfg, 1, seed=11, device="cpu")
     want = P.forward_infer_fused(models, batch, cfg)
     models = {k: m.to(device) for k, m in models.items()}
     before = SW.launches

@@ -40,12 +40,12 @@ CFG = Config(height=H, width=W, batch_size=B, compute_dtype="float32",
              pallas_warp=False)
 
 
-def _state_dicts(seed=42):
+def _state_dicts(cfg=CFG, seed=42):
     """Seeded port weights, BN statistics perturbed, pose head conditioned
     as in test_e2e_parity (x40 on net.3: a few-pixel motion, so the
     z-scaled depth bins are not degenerate)."""
     rng = np.random.default_rng(seed)
-    models = build_models(CFG, "cpu", torch.Generator().manual_seed(seed))
+    models = build_models(cfg, "cpu", torch.Generator().manual_seed(seed))
     states = {}
     for name, m in models.items():
         sd = {k: v.clone() for k, v in m.state_dict().items()}
@@ -62,22 +62,28 @@ def _state_dicts(seed=42):
     return states
 
 
-@pytest.fixture(scope="module")
-def setup():
-    states = _state_dicts()
-    models = build_models(CFG, "cpu")
+def _setup(cfg):
+    """Both packages' models on the same converted weights, the batch, and
+    the JAX package's forward_infer_fused on it."""
+    states = _state_dicts(cfg)
+    models = build_models(cfg, "cpu")
     for name, m in models.items():
         m.load_state_dict(states[name])
     variables = {name: TI.convert_state_dict(
         name, {k: v.numpy() for k, v in sd.items()})
         for name, sd in states.items()}
-    jmodels = jax_build_models(CFG)
-    batch = make_batch(CFG, B, seed=11)
+    jmodels = jax_build_models(cfg)
+    batch = make_batch(cfg, B, seed=11)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    want = jax.jit(lambda v, b: JP.forward_infer_fused(jmodels, v, b, CFG))(
+    want = jax.jit(lambda v, b: JP.forward_infer_fused(jmodels, v, b, cfg))(
         variables, jbatch)
     want = {k: np.asarray(v) for k, v in want.items()}
     return states, models, variables, jmodels, batch, want
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(CFG)
 
 
 def _close(got, want, **tol):
@@ -98,6 +104,19 @@ def test_forward_infer(setup):
 def test_forward_infer_fused(setup):
     _, models, _, _, batch, want = setup
     got = P.forward_infer_fused(models, P.as_batch(batch, "cpu"), CFG)
+    _close(got["trust_mono"], want["trust_mono"], atol=1e-4)
+    _close(got["depth_fused"], want["depth_fused"], rtol=1e-4, atol=1e-3)
+    _close(got["disp_fused"], want["disp_fused"], rtol=1e-4, atol=1e-6)
+
+
+def test_forward_infer_fused_two_groups():
+    """reg3d_c = 2: a cost volume of two groups, fewer than a 16-byte vector
+    holds (the kernel's in-lane group sum on the card), under the same
+    tolerances."""
+    cfg = CFG.replace(reg3d_c=2)
+    _, models, _, _, batch, want = _setup(cfg)
+    got = P.forward_infer_fused(models, P.as_batch(batch, "cpu"), cfg)
+    _close(got["cost_prob"], want["cost_prob"], atol=1e-4)
     _close(got["trust_mono"], want["trust_mono"], atol=1e-4)
     _close(got["depth_fused"], want["depth_fused"], rtol=1e-4, atol=1e-3)
     _close(got["disp_fused"], want["disp_fused"], rtol=1e-4, atol=1e-6)

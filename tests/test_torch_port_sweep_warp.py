@@ -5,6 +5,9 @@ On the CPU the port runs its plain PyTorch version. The CUDA kernel is
 held to that version on the card by tests/test_torch_port_cuda.py.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -47,9 +50,17 @@ def _port(src, ref, sx, sy, groups, dtype=torch.float32):
                               groups)
 
 
-@pytest.mark.parametrize("c,groups", [(8, 4), (32, 16)])
+# (C, G) cases: the shipped pair, G < 16-byte vector (G = 1, 2), G = C; the
+# G = C = 64 case at a smaller shape (interpret mode is slow at its width)
+_PAIRS = [(8, 4), (32, 16), (8, 1), (16, 2), (32, 1), (32, 2), (64, 2),
+          (64, 64)]
+_SHAPE = {(64, 64): dict(b=1, d=8, h=8, w=16)}
+
+
+@pytest.mark.parametrize("c,groups", _PAIRS)
 def test_matches_pallas_kernel_interpret(rng, c, groups):
-    src, ref, _, _, _, _, sx, sy = _inputs(rng, c=c)
+    src, ref, _, _, _, _, sx, sy = _inputs(rng, c=c,
+                                           **_SHAPE.get((c, groups), {}))
     want = JW.sweep_warp_corr(jnp.asarray(src), jnp.asarray(ref), sx, sy,
                               groups, interpret=True)
     got = _port(src, ref, sx, sy, groups)
@@ -57,9 +68,10 @@ def test_matches_pallas_kernel_interpret(rng, c, groups):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
-@pytest.mark.parametrize("c,groups", [(8, 4), (32, 16)])
+@pytest.mark.parametrize("c,groups", _PAIRS)
 def test_matches_unfused_xla_path(rng, c, groups):
-    src, ref, K, invK, bins, T, sx, sy = _inputs(rng, c=c)
+    src, ref, K, invK, bins, T, sx, sy = _inputs(
+        rng, c=c, **_SHAPE.get((c, groups), {}))
     want = reduce_cost_groups(
         plane_sweep_costvol(ref, src, K, invK, bins, T), groups)
     got = _port(src, ref, sx, sy, groups)
@@ -134,3 +146,18 @@ def test_rejects_what_the_kernel_does_not_take(rng, case):
         args[1] = args[1][:, :-1]
     with pytest.raises((ValueError, TypeError)):
         SW.sweep_warp_corr(*args)
+
+
+def test_kernel_pairs_follow_the_jax_contract():
+    """The (C, G) pairs compiled into csrc/sweep_warp_corr.cu are exactly
+    those the JAX package fuses at the FPN's matching widths: C in {8, 16,
+    32, 64}, G dividing C, C/G a power of two."""
+    src = (Path(SW.__file__).resolve().parents[1] / "csrc"
+           / "sweep_warp_corr.cu").read_text()
+    macro = re.search(r"#define SWC_PAIRS\(X\)(.*?)\n\n", src, re.S).group(1)
+    built = {(int(c), int(g))
+             for c, g in re.findall(r"X\((\d+),\s*(\d+)\)", macro)}
+    rule = {(c, g) for c in (8, 16, 32, 64) for g in range(1, c + 1)
+            if c % g == 0 and (c // g) & (c // g - 1) == 0}
+    assert len(rule) == 22
+    assert built == rule
