@@ -485,6 +485,26 @@ GATES = {("disp_mono", "mean_rel"): 6e-3, ("disp_mono", "p95_rel"): 1.5e-2,
          ("depth_mvs", "mean_rel"): 6e-3, ("depth_mvs", "p95_rel"): 1.5e-2}
 
 
+def _check_gates(label, got, want):
+    """Log the card-vs-CPU statistics of a forward's outputs, each line
+    starting with ``label``, and raise unless every one is finite and
+    within GATES."""
+    import torch
+    failed = []
+    for key in ("disp_mono", "cost_prob", "depth_mvs", "depth_fused"):
+        if not torch.isfinite(got[key]).all():
+            failed.append(f"{key} not finite")
+        st = _stats(got[key], want[key])
+        log(f"{label} float32 card vs CPU {key}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in st.items()))
+        failed += [f"{key}.{k} {st[k]:.3e} > {bound}"
+                   for (name, k), bound in GATES.items()
+                   if name == key and not st[k] <= bound]
+    if failed:
+        raise RuntimeError(f"{label} card vs CPU gates failed: "
+                           + "; ".join(failed))
+
+
 def phase_main_path():
     """forward_infer_fused of the shipped Config() models (ResNet18,
     640x192, 16 bins, convex upsampling) at batch 2: float32 on the card
@@ -512,16 +532,7 @@ def phase_main_path():
     if SW.launches != before + 1:
         raise RuntimeError(f"sweep_warp_corr launched {SW.launches - before}"
                            " times in one forward, expected 1")
-    failed = []
-    for key in ("disp_mono", "cost_prob", "depth_mvs", "depth_fused"):
-        st = _stats(got[key], want[key])
-        log(f"[main] float32 card vs CPU {key}: " + ", ".join(
-            f"{k} {v:.3e}" for k, v in st.items()))
-        failed += [f"{key}.{k} {st[k]:.3e} > {bound}"
-                   for (name, k), bound in GATES.items()
-                   if name == key and not st[k] <= bound]
-    if failed:
-        raise RuntimeError("card vs CPU gates failed: " + "; ".join(failed))
+    _check_gates("[main]", got, want)
     log(f"[main] float32 gates pass: {GATES}; sweep_warp_corr launched once")
 
     cfg16 = Config()  # compute_dtype bfloat16: models under autocast
@@ -543,7 +554,9 @@ def phase_group_configs():
     """forward_infer_fused at 640x192, batch 1, 8 depth bins, in the two
     configurations whose (C, G) pairs the kernel gained last: reg3d_c = 2
     (C = 32) and prior_scale = 3 with reg3d_c = 64 (C = 64). float32 on the
-    card against the same port on the CPU under phase 4's gates; one
+    card against the same port on the CPU under phase 4's gates, and the
+    cost volume itself within 1e-3 of its range (random weights make the
+    prior-scale-3 features tiny, so its softmax is uniform to float32); one
     kernel launch each."""
     import torch
     from movedepth_tpu_torch import Config
@@ -560,26 +573,32 @@ def phase_group_configs():
         _temper_pose_head(cpu_models)
         models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
         batch = P.synthetic_batch(cfg, 1, seed=0, device="cpu")
-        want = P.forward_infer_fused(cpu_models, batch, cfg)
-        before = SW.launches
-        got = P.forward_infer_fused(models, P.as_batch(batch, "cuda"), cfg)
-        torch.cuda.synchronize()
+        costs, kernel = [], P.sweep_warp_corr
+
+        def record(*args):
+            costs.append(kernel(*args))
+            return costs[-1]
+
+        P.sweep_warp_corr = record
+        try:
+            want = P.forward_infer_fused(cpu_models, batch, cfg)
+            before = SW.launches
+            got = P.forward_infer_fused(models, P.as_batch(batch, "cuda"),
+                                        cfg)
+            torch.cuda.synchronize()
+        finally:
+            P.sweep_warp_corr = kernel
         if SW.launches != before + 1:
             raise RuntimeError(f"{tag}: sweep_warp_corr launched "
                                f"{SW.launches - before} times, expected 1")
-        failed = []
-        for key in ("disp_mono", "cost_prob", "depth_mvs", "depth_fused"):
-            if not torch.isfinite(got[key]).all():
-                failed.append(f"{key} not finite")
-            st = _stats(got[key], want[key])
-            log(f"[groups] {tag}: float32 card vs CPU {key}: " + ", ".join(
-                f"{k} {v:.3e}" for k, v in st.items()))
-            failed += [f"{key}.{k} {st[k]:.3e} > {bound}"
-                       for (name, k), bound in GATES.items()
-                       if name == key and not st[k] <= bound]
-        if failed:
-            raise RuntimeError(f"{tag}: card vs CPU gates failed: "
-                               + "; ".join(failed))
+        scale = costs[0].abs().max().item()
+        rel = (costs[1].cpu() - costs[0]).abs().max().item() / scale
+        log(f"[groups] {tag}: cost volume {tuple(costs[1].shape)}, card vs "
+            f"CPU max difference {rel:.3e} of its range {scale:.3e}")
+        if not rel <= 1e-3:
+            raise RuntimeError(f"{tag}: the card's cost volume differs from "
+                               "the CPU's")
+        _check_gates(f"[groups] {tag}:", got, want)
         log(f"[groups] {tag} (C={8 << prior_scale}, G={groups}): "
             "phase 4's gates pass; sweep_warp_corr launched once")
 
@@ -1493,130 +1512,9 @@ def phase_variants():
     return rec
 
 
-# design steps of the sweep warp's forward (row 2): (name, planes a thread
-# (0: the PR 2 kernel), lanes share the taps, evict-first stores, mode bits
-# (1 no gather, 2 no coordinates, 4 store only, 8 walk all planes, 16 walk
-# with the next planes' gathers issued before the stores), threads a block)
-STEP_DESIGNS = [("previous", 0, 0, 0, 0, 256)] + [
-    (f"P{p}{' share' if sh else ''}{' stream' if st else ''} t{t}", p, sh, st,
-     0, t) for t in (256, 128) for p in (1, 2, 4, 8) for sh in (0, 1)
-    for st in (0, 1)] + [
-    (f"P{p}{' share' if sh else ''} walk{' stream' if st else ''} t128", p,
-     sh, st, 8, 128) for p, sh in ((1, 0), (2, 0), (2, 1), (4, 1))
-    for st in (0, 1)] + [
-    (f"P{p}{' share' if sh else ''} pipe{' stream' if st else ''} t128", p,
-     sh, st, 16, 128) for p, sh in ((1, 0), (2, 0), (2, 1), (4, 1))
-    for st in (0, 1)] + [
-    (f"P4 share stream t128, {name}", 4, 1, 1, mode, 128)
-    for name, mode in (("no gather", 1), ("no coordinates", 2),
-                       ("no gather, no coordinates", 3), ("store only", 4))]
-
-
-class _SwapFwd:
-    """The sweep-warp library with its bfloat16 forward replaced by a
-    design step (counting its launches)."""
-
-    def __init__(self, lib, design):
-        self._lib, self._design, self.calls = lib, design, 0
-
-    def sweep_warp_fwd_bf16(self, *args):
-        self.calls += 1
-        return self._lib.sweep_warp_fwd_step_bf16(*self._design, *args)
-
-    def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-
-def phase_steps(card):
-    """Each design step of the sweep warp's forward in bfloat16 at the
-    train shape, on phase 7's coordinates and at KITTI speed: checked
-    against the plain version (output first filled with NaN), then timed by
-    device_ms; then train_step bf16 batch 12 with the shipped design with
-    and without evict-first stores, in turns."""
-    import torch
-    from movedepth_tpu_torch import Config
-    from movedepth_tpu_torch import pipeline as P
-    from movedepth_tpu_torch.models import build_models
-    from movedepth_tpu_torch.ops import sweep_warp as SW
-    from movedepth_tpu_torch.train import state as S
-
-    s = TRAIN_SHAPE
-    b, r, w, c, d = s["B"], s["R"], s["W"], s["C"], s["D"]
-    gen = torch.Generator().manual_seed(1)
-    dev = torch.device("cuda")
-    sx, sy = _sweep_coords(b, r, w, d, gen)
-    _edge_cases(sx, sy, w, r)
-    src16 = torch.randn(b, r, w, c, generator=gen).bfloat16().to(dev)
-    coords = {"phase 7": (sx.to(dev), sy.to(dev)),
-              "KITTI speed": tuple(t.to(dev) for t in _sweep_coords(
-                  b, r, w, d, torch.Generator().manual_seed(3), 10.0))}
-    want = {k: SW.sweep_warp_reference(src16.float(), x, y)
-            for k, (x, y) in coords.items()}
-    lib = SW.warp_library()
-    out = torch.empty((b, d, r, w, c), dtype=torch.bfloat16, device=dev)
-    rows = []
-    for name, *design in STEP_DESIGNS:
-        ms = {}
-        for tag, (x, y) in coords.items():
-            out.fill_(float("nan"))
-            fn = _bare(lib.sweep_warp_fwd_step_bf16, *design, src16, x, y,
-                       out, b, r, w, d, r, c)
-            if design[3] & 7 == 0:  # the ablations compute wrong results
-                _within(f"step {name}, {tag}", out, want[tag], bf16=True)
-            ms[tag] = device_ms(fn)
-        rows.append((name, design, ms))
-        log(f"[steps] {name}: " + ", ".join(
-            f"{v:.4f} ms on {k}" for k, v in ms.items()) + f"; {card}")
-    zero_ms = device_ms(out.zero_)
-    log(f"[steps] yardstick: out.zero_() on the {out.numel() * 2 / 1e6:.1f} "
-        f"MB output {zero_ms:.4f} ms; {card}")
-    log("[steps] " + json.dumps({n: m for n, _, m in rows}))
-    del want, out
-    # the fastest design that stores evict-first, against its twin
-    best = min((r for r in rows if r[1][2] and r[1][3] & 7 == 0
-                and r[1][0]), key=lambda r: r[2]["phase 7"])[1]
-    twin = (best[0], best[1], 0, best[3], best[4])
-
-    cfg = Config()
-    cpu_models = build_models(Config(compute_dtype="float32"), "cpu",
-                              torch.Generator().manual_seed(0))
-    _boost_pose_head(cpu_models)
-    batch = P.synthetic_batch(cfg, b, seed=1, device="cuda")
-    draws = P.sample_draws(cfg, b, torch.Generator("cuda").manual_seed(1),
-                           device="cuda")
-    shipped = SW.warp_library
-    times = {"evict-first": [], "plain stores": []}
-    for label, design in (("evict-first", tuple(best)),
-                          ("plain stores", twin)) * 2:
-        swap = _SwapFwd(lib, design)
-        SW.warp_library = lambda swap=swap: swap
-        try:
-            models = {k: copy.deepcopy(m).cuda()
-                      for k, m in cpu_models.items()}
-            opt, sched = S.create_optimizer(models, cfg)
-            ms = cuda_ms(lambda: S.train_step(models, opt, sched, batch, cfg,
-                                              True, draws), runs=10, warmup=3)
-        finally:
-            SW.warp_library = shipped
-        if swap.calls == 0:
-            raise RuntimeError("the train step never launched the step")
-        times[label].append(ms)
-        log(f"[steps] train_step bf16 batch {b}, row 2 {design} "
-            f"({label}): {ms:.3f} ms/step (median of 10); {card}")
-    log(f"[steps] train_step in turns: {times}; {card}")
-
-
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
-        return
-    if sys.argv[1:] == ["--steps"]:
-        import torch
-        card = phase_device()
-        phase_build()
-        _check_pairs(torch.device("cuda"))
-        phase_steps(card)
-        log("[steps] done")
         return
     card = phase_device()
     phase_build()

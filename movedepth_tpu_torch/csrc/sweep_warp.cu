@@ -13,12 +13,30 @@
 // the TPU kernels do (bilinear.cuh).
 //
 // Forward. The TPU kernels express the gather as one-hot matmuls because a
-// TPU cannot gather; Hopper gathers natively. One thread owns one 16-byte
-// channel chunk (4 float32 or 8 bfloat16 channels) of one output point
-// (b, d, h, x): neighbouring threads hold neighbouring chunks and then
-// neighbouring x, so the coordinate reads, the tap reads and the output
-// rows are coalesced. Bound: HBM traffic, the 94 MB output at the train
-// shape (B=12, D=16, H=R=48, W=160, C=32, bfloat16).
+// TPU cannot gather; Hopper gathers natively. A point's C channels are L =
+// C/V 16-byte chunks (V = 4 float32 or 8 bfloat16 channels) on L
+// neighbouring lanes, so each tap is one 16-byte load a lane and a warp
+// stores 32/L whole points of an output row. The block is (L lanes, 128/L
+// pixels of one row h) and the grid (x-tiles, h, b): no index division.
+// A thread walks all D planes of its (pixel, chunk), 2 planes at a time:
+// the next 2 planes' coordinates are loaded before this pair's stores, so
+// the HBM latency of the coordinate reads hides behind the gathers and
+// stores. Where L is a power of two from 2 to 32, lane j of a point
+// computes the taps (clamp, floor, weights, validity) of plane j of the
+// pair and hands them to the other lanes by __shfl_sync, instead of every
+// lane repeating them. The output, written once and read by the next op,
+// is stored evict-first (__stcs).
+//
+// What bounds the forward: the 94 MB output at the train shape (B=12,
+// D=16, H=R=48, W=160, C=32, bfloat16) and the gathers that feed it.
+// Measured on an H100 SXM at 700 W: a zero fill of the output takes
+// 0.032 ms (the bound of all the bytes is 0.0335 ms), the kernel's stores
+// alone on its grid 0.038 ms, and taking the gathers out of the design a
+// step before this one (4 planes a thread, no walk) saved 0.024 of its
+// 0.070 ms. Each tap is a 16-byte load a lane, so the gathers move 4x the
+// output's bytes through L1, where most hit (neighbouring pixels and
+// planes share taps). 2 planes a thread keep the registers at 64 (32
+// warps an SM); 4 planes (114 registers) lose at KITTI speed, 8 spill.
 //
 // Source gradient. The TPU kernel keeps a batch element's whole dsrc in
 // VMEM and adds to it grid step by grid step; a GPU has no such memory
@@ -48,42 +66,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // backward block
 constexpr int kAhead = 4;  // planes whose loads the backward issues together
 
-// The PR 2 forward, timed as the design step "previous": one thread a
-// 16-byte chunk of one point, 64-bit index division.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sweep_warp_fwd_prev_kernel(const T* __restrict__ src,
-                               const float* __restrict__ sx,
-                               const float* __restrict__ sy,
-                               T* __restrict__ out, long long n, int R, int W,
-                               int DHW, int C) {
-  constexpr int V = mdt::Vec<T>::N;
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int chunks = C / V;
-  const long long p = i / chunks;  // ((b*D + d)*H + h)*W + x
-  const int c0 = static_cast<int>(i % chunks) * V;
-  const long long b = p / DHW;
-  const mdt::Taps t = mdt::zeros_taps(sx[p], sy[p], W, R);
-  const T* __restrict__ s = src + b * R * W * C + c0;
-
-  float acc[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (!t.valid[k]) continue;
-    float v[V];
-    mdt::load16(s + mdt::tap_offset(t, k, W) * C, v);
-#pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = fmaf(t.w[k], v[j], acc[j]);
-  }
-  mdt::store16(out + p * C + c0, acc);
-}
+// Forward: planes a thread handles at a time, and threads a block.
+constexpr int kFwdPlanes = 2;
+constexpr int kFwdThreads = 128;
 
 // 16 raw bytes of T: 4 float32 or 8 bfloat16 values, unconverted.
 __device__ __forceinline__ uint4 load_raw(const void* p) {
@@ -107,83 +95,60 @@ __device__ __forceinline__ void unpack(uint4 v, float* dst, __nv_bfloat16) {
   }
 }
 
-// 16 bytes of T from floats, rounded once; kStream: evict-first (__stcs).
-template <bool kStream>
-__device__ __forceinline__ void store_out(float* p, const float* v) {
-  const float4 f = make_float4(v[0], v[1], v[2], v[3]);
-  if constexpr (kStream)
-    __stcs(reinterpret_cast<float4*>(p), f);
-  else
-    *reinterpret_cast<float4*>(p) = f;
+// 16 bytes of T from floats, rounded once, stored evict-first.
+__device__ __forceinline__ void store_cs(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
 }
 
-template <bool kStream>
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, const float* v) {
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, const float* v) {
   uint4 u;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  if constexpr (kStream)
-    __stcs(reinterpret_cast<uint4*>(p), u);
-  else
-    *reinterpret_cast<uint4*>(p) = u;
+  __stcs(reinterpret_cast<uint4*>(p), u);
 }
 
-// Ablation and walk bits of a design step (kMode).
-enum Mode : int {
-  kNoGather = 1,   // every tap reads the lane's chunk of source pixel 0
-  kNoCoords = 2,   // coordinates made up from (x, h, d), not read
-  kStoreOnly = 4,  // no loads and no arithmetic: zeros stored
-  kWalk = 8,       // a thread walks all D planes, P at a time, and loads
-                   // the next P planes' coordinates before its stores
-  kPipe = 16,      // kWalk, with the next P planes' gathers also issued
-                   // before the stores and coordinates 2P planes ahead
-};
-
-// Coordinate slots of a thread: its P planes (kL == 0), or the planes
-// j, j + kL, ... whose taps lane j computes for the kL lanes of its point.
-template <int P, int kL>
+// Coordinate slots of a thread: its kFwdPlanes planes (kL == 0), or the
+// planes j, j + kL, ... whose taps lane j computes for the kL lanes of its
+// point.
+template <int kL>
 __host__ __device__ constexpr int coord_slots() {
-  return kL == 0 ? P : (P + kL - 1) / kL;
+  return kL == 0 ? kFwdPlanes : (kFwdPlanes + kL - 1) / kL;
 }
 
-template <int P, int kL, int kMode>
+// The coordinates of planes d0 .. d0 + kFwdPlanes - 1 (the last plane
+// standing in past D) at offset p0 of plane d0.
+template <int kL>
 __device__ __forceinline__ void load_coords(const float* __restrict__ sx,
                                             const float* __restrict__ sy,
                                             size_t p0, size_t hw, int d0,
-                                            int D, int lane, int x, int h,
-                                            float* xs, float* ys) {
-  constexpr int N = coord_slots<P, kL>();
+                                            int D, int lane, float* xs,
+                                            float* ys) {
 #pragma unroll
-  for (int r = 0; r < N; ++r) {
-    const int u = kL == 0 ? r : min(r * kL + lane, P - 1);
-    const int du = min(u, D - 1 - d0);
-    if constexpr ((kMode & kNoCoords) != 0) {
-      xs[r] = x + 0.37f * (d0 + du) - 1.5f;
-      ys[r] = h + 0.21f;
-    } else {
-      xs[r] = sx[p0 + du * hw];
-      ys[r] = sy[p0 + du * hw];
-    }
+  for (int r = 0; r < coord_slots<kL>(); ++r) {
+    const int u = kL == 0 ? r : min(r * kL + lane, kFwdPlanes - 1);
+    const size_t q = p0 + min(u, D - 1 - d0) * hw;
+    xs[r] = sx[q];
+    ys[r] = sy[q];
   }
 }
 
-// The tap weights and gathered source chunks of P planes.
-template <int P>
+// The tap weights and gathered source chunks of kFwdPlanes planes.
 struct Gathered {
-  float w[P][4];
-  uint4 v[P][4];
+  float w[kFwdPlanes][4];
+  uint4 v[kFwdPlanes][4];
 };
 
-// Taps of the P planes from their coordinates (kL > 0: computed by one lane
-// each and handed round by shuffles), then every gather issued at once.
-template <typename T, int P, int kL, int kMode>
-__device__ __forceinline__ void gather(Gathered<P>& g, const float* xs,
+// The planes' taps from their coordinates (kL > 0: computed by one lane
+// each and handed round by shuffles), then every gather issued at once;
+// taps outside the frame read nothing and hold zeros.
+template <typename T, int kL>
+__device__ __forceinline__ void gather(Gathered& g, const float* xs,
                                        const float* ys,
                                        const T* __restrict__ s, int W, int R,
                                        int C) {
-  constexpr int N = coord_slots<P, kL>();
+  constexpr int N = coord_slots<kL>();
   int mx[N], my[N];
   float mw[N][4];
   unsigned mv[N];  // bit k: tap k inside the frame
@@ -200,7 +165,7 @@ __device__ __forceinline__ void gather(Gathered<P>& g, const float* xs,
     }
   }
 #pragma unroll
-  for (int u = 0; u < P; ++u) {
+  for (int u = 0; u < kFwdPlanes; ++u) {
     int x0, y0;
     unsigned valid;
     if constexpr (kL == 0) {
@@ -222,21 +187,21 @@ __device__ __forceinline__ void gather(Gathered<P>& g, const float* xs,
     for (int k = 0; k < 4; ++k) {
       const long long off =
           static_cast<long long>(y0 + (k >> 1)) * W + x0 + (k & 1);
-      const T* q = (kMode & kNoGather) != 0 ? s : s + off * C;
-      g.v[u][k] = (valid >> k) & 1u ? load_raw(q)
+      g.v[u][k] = (valid >> k) & 1u ? load_raw(s + off * C)
                                     : make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
 
-// The P planes' weighted sums, rounded once and stored (planes below D).
-template <typename T, int P, bool kStream>
-__device__ __forceinline__ void blend_store(const Gathered<P>& g,
+// The planes' weighted sums (float32 weights and sums, one rounding),
+// stored for the planes below D.
+template <typename T>
+__device__ __forceinline__ void blend_store(const Gathered& g,
                                             T* __restrict__ o, size_t hwc,
                                             int d0, int D) {
   constexpr int V = mdt::Vec<T>::N;
 #pragma unroll
-  for (int u = 0; u < P; ++u) {
+  for (int u = 0; u < kFwdPlanes; ++u) {
     if (d0 + u >= D) break;
     float acc[V];
 #pragma unroll
@@ -248,103 +213,48 @@ __device__ __forceinline__ void blend_store(const Gathered<P>& g,
 #pragma unroll
       for (int j = 0; j < V; ++j) acc[j] = fmaf(g.w[u][k], f[j], acc[j]);
     }
-    store_out<kStream>(o + u * hwc, acc);
+    store_cs(o + u * hwc, acc);
   }
 }
 
 // src (B,R,W,C) T, sx/sy (B,D,H,W) f32 -> out (B,D,H,W,C) T. Block
 // (lanes, pixels): threadIdx.x a 16-byte chunk, threadIdx.y a pixel of the
-// x-tile; grid (x-tiles, plane group * H + h, b), strided past 65535. A
-// thread covers P planes of its (pixel, chunk), or all D with kWalk. kL > 0:
-// the kL == C / V lanes of a point split the tap arithmetic.
-template <typename T, int P, int kL, int kMode, bool kStream>
-__global__ void __launch_bounds__(kThreads)
+// x-tile; grid (x-tiles, h, b), strided past 65535. Each thread walks the D
+// planes of its (pixel, chunk). kL > 0: kL == C / V, and the kL lanes of a
+// point share the tap arithmetic.
+template <typename T, int kL>
+__global__ void __launch_bounds__(kFwdThreads)
     sweep_warp_fwd_kernel(const T* __restrict__ src,
                           const float* __restrict__ sx,
                           const float* __restrict__ sy, T* __restrict__ out,
                           int B, int R, int W, int D, int H, int C) {
   constexpr int V = mdt::Vec<T>::N;
-  constexpr bool kAll = (kMode & (kWalk | kPipe)) != 0;
-  constexpr int N = coord_slots<P, kL>();
+  constexpr int P = kFwdPlanes;
   const int L = C / V;
-  const int rows = (kAll ? 1 : (D + P - 1) / P) * H;
   const size_t hw = static_cast<size_t>(H) * W;
   const int x_ = blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = x_ < W;
   const int x = live ? x_ : W - 1;  // dead pixels join the shuffles
   for (int b = blockIdx.z; b < B; b += gridDim.z)
-    for (int y = blockIdx.y; y < rows; y += gridDim.y) {
-      const int g = y / H;
-      const int h = y - g * H;
+    for (int h = blockIdx.y; h < H; h += gridDim.y) {
       const size_t p00 = static_cast<size_t>(b) * D * hw +
                          static_cast<size_t>(h) * W + x;  // plane 0
       for (int lane = threadIdx.x; lane < L; lane += blockDim.x) {
         const int c0 = lane * V;
         const T* __restrict__ s =
             src + static_cast<size_t>(b) * R * W * C + c0;
-        int d0 = g * P;
-        if constexpr ((kMode & kStoreOnly) != 0) {
-          if (!live) continue;
-          Gathered<P> z;
-#pragma unroll
-          for (int u = 0; u < P; ++u)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              z.w[u][k] = 0.0f;
-              z.v[u][k] = make_uint4(0u, 0u, 0u, 0u);
-            }
-          for (; d0 < D; d0 += P) {
-            blend_store<T, P, kStream>(z, out + (p00 + d0 * hw) * C + c0,
-                                       hw * C, d0, D);
-            if (!kAll) break;
-          }
-          continue;
-        }
-        float xs[N], ys[N];
-        load_coords<P, kL, kMode>(sx, sy, p00 + d0 * hw, hw, d0, D, lane, x,
-                                  h, xs, ys);
-        if constexpr ((kMode & kPipe) != 0) {
-          float xn[N], yn[N];
-          if (d0 + P < D)
-            load_coords<P, kL, kMode>(sx, sy, p00 + (d0 + P) * hw, hw, d0 + P,
-                                      D, lane, x, h, xn, yn);
-          Gathered<P> cur;
-          gather<T, P, kL, kMode>(cur, xs, ys, s, W, R, C);
-          for (;;) {
-            const bool more = d0 + P < D;
-            Gathered<P> nxt;
-            if (more) {
-              if (d0 + 2 * P < D)
-                load_coords<P, kL, kMode>(sx, sy, p00 + (d0 + 2 * P) * hw, hw,
-                                          d0 + 2 * P, D, lane, x, h, xs, ys);
-              gather<T, P, kL, kMode>(nxt, xn, yn, s, W, R, C);
-            }
-            if (live)
-              blend_store<T, P, kStream>(cur, out + (p00 + d0 * hw) * C + c0,
-                                         hw * C, d0, D);
-            if (!more) break;
-            cur = nxt;
-#pragma unroll
-            for (int r = 0; r < N; ++r) {
-              xn[r] = xs[r];
-              yn[r] = ys[r];
-            }
-            d0 += P;
-          }
-          continue;
-        }
-        for (;;) {
-          Gathered<P> gd;
-          gather<T, P, kL, kMode>(gd, xs, ys, s, W, R, C);
-          const bool more = kAll && d0 + P < D;
+        float xs[coord_slots<kL>()], ys[coord_slots<kL>()];
+        load_coords<kL>(sx, sy, p00, hw, 0, D, lane, xs, ys);
+        for (int d0 = 0;; d0 += P) {
+          Gathered g;
+          gather<T, kL>(g, xs, ys, s, W, R, C);
+          const bool more = d0 + P < D;
           if (more)
-            load_coords<P, kL, kMode>(sx, sy, p00 + (d0 + P) * hw, hw,
-                                      d0 + P, D, lane, x, h, xs, ys);
+            load_coords<kL>(sx, sy, p00 + (d0 + P) * hw, hw, d0 + P, D, lane,
+                            xs, ys);
           if (live)
-            blend_store<T, P, kStream>(gd, out + (p00 + d0 * hw) * C + c0,
-                                       hw * C, d0, D);
+            blend_store(g, out + (p00 + d0 * hw) * C + c0, hw * C, d0, D);
           if (!more) break;
-          d0 += P;
         }
       }
     }
@@ -424,41 +334,19 @@ __global__ void __launch_bounds__(kThreads)
   if (by != -100) flush();
 }
 
-template <typename T>
-int launch_prev(const void* src, const void* sx, const void* sy, void* out,
-                int B, int R, int W, int D, int H, int C,
-                cudaStream_t stream) {
-  const long long n = static_cast<long long>(B) * D * H * W * (C / mdt::Vec<T>::N);
-  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads));
-  sweep_warp_fwd_prev_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(src), static_cast<const float*>(sx),
-      static_cast<const float*>(sy), static_cast<T*>(out), n, R, W, D * H * W,
-      C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int P, int kL, int kMode, bool kStream>
-int launch_design(const void* src, const void* sx, const void* sy, void* out,
-                  int B, int R, int W, int D, int H, int C, int threads,
-                  cudaStream_t stream) {
-  const int L = C / mdt::Vec<T>::N;
-  if (kL != 0 && L != kL) return static_cast<int>(cudaErrorInvalidValue);
-  const int lanes = min(L, threads);
-  const int pixels = max(1, threads / lanes);
-  const int rows = ((kMode & (kWalk | kPipe)) != 0 ? 1 : (D + P - 1) / P) * H;
+template <typename T, int kL>
+int launch_fwd_lanes(const void* src, const void* sx, const void* sy,
+                     void* out, int B, int R, int W, int D, int H, int C,
+                     cudaStream_t stream) {
+  const int lanes = min(C / mdt::Vec<T>::N, kFwdThreads);
+  const int pixels = kFwdThreads / lanes;
   const dim3 block(lanes, pixels);
-  const dim3 grid((W + pixels - 1) / pixels, min(rows, 65535), min(B, 65535));
-  sweep_warp_fwd_kernel<T, P, kL, kMode, kStream>
-      <<<grid, block, 0, stream>>>(
-          static_cast<const T*>(src), static_cast<const float*>(sx),
-          static_cast<const float*>(sy), static_cast<T*>(out), B, R, W, D, H,
-          C);
+  const dim3 grid((W + pixels - 1) / pixels, min(H, 65535), min(B, 65535));
+  sweep_warp_fwd_kernel<T, kL><<<grid, block, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const float*>(sx),
+      static_cast<const float*>(sy), static_cast<T*>(out), B, R, W, D, H, C);
   return static_cast<int>(cudaGetLastError());
 }
-
-// The shipped design.
-constexpr int kFwdPlanes = 4;
-constexpr int kFwdThreads = 128;
 
 template <typename T>
 int launch_fwd(const void* src, const void* sx, const void* sy, void* out,
@@ -466,42 +354,18 @@ int launch_fwd(const void* src, const void* sx, const void* sy, void* out,
                cudaStream_t stream) {
   if (C <= 0 || C % mdt::Vec<T>::N) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * D * H * W == 0) return 0;
-  return launch_design<T, kFwdPlanes, 0, 0, true>(
-      src, sx, sy, out, B, R, W, D, H, C, kFwdThreads, stream);
-}
-
-// A design step in bfloat16: planes 0 the PR 2 kernel, else P planes a
-// thread; share: the 4 lanes of a C=32 point split the tap arithmetic;
-// stream: evict-first stores; mode: Mode bits; threads a block.
-int launch_step(int planes, int share, int stream_hint, int mode, int threads,
-                const void* src, const void* sx, const void* sy, void* out,
-                int B, int R, int W, int D, int H, int C,
-                cudaStream_t stream) {
-  using T = __nv_bfloat16;
-  if (C <= 0 || C % mdt::Vec<T>::N || threads < 1 || threads > kThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(B) * D * H * W == 0) return 0;
-  if (planes == 0)
-    return launch_prev<T>(src, sx, sy, out, B, R, W, D, H, C, stream);
-#define STEP(p, l, m, st)                                                  \
-  if (planes == p && (share ? 4 : 0) == l && mode == m &&                 \
-      (stream_hint != 0) == st)                                           \
-    return launch_design<T, p, l, m, st>(src, sx, sy, out, B, R, W, D, H, \
-                                         C, threads, stream);
-#define STEP_P(p) STEP(p, 0, 0, false) STEP(p, 0, 0, true) \
-  STEP(p, 4, 0, false) STEP(p, 4, 0, true)
-  STEP_P(1) STEP_P(2) STEP_P(4) STEP_P(8)
-#define STEP_W(p, l) STEP(p, l, kWalk, false) STEP(p, l, kWalk, true)
-  STEP_W(1, 0) STEP_W(2, 0) STEP_W(2, 4) STEP_W(4, 4)
-#undef STEP_W
-#define STEP_PIPE(p, l) STEP(p, l, kPipe, false) STEP(p, l, kPipe, true)
-  STEP_PIPE(1, 0) STEP_PIPE(2, 0) STEP_PIPE(2, 4) STEP_PIPE(4, 4)
-#undef STEP_PIPE
-  STEP(4, 4, kNoGather, true) STEP(4, 4, kNoCoords, true)
-  STEP(4, 4, kNoGather | kNoCoords, true) STEP(4, 4, kStoreOnly, true)
-#undef STEP_P
-#undef STEP
-  return static_cast<int>(cudaErrorInvalidValue);
+  // lanes of a point share its taps where they fill warp segments evenly
+  switch (C / mdt::Vec<T>::N) {
+#define FWD_LANES(l)                                                     \
+  case l:                                                                \
+    return launch_fwd_lanes<T, l>(src, sx, sy, out, B, R, W, D, H, C,   \
+                                  stream);
+    FWD_LANES(2) FWD_LANES(4) FWD_LANES(8) FWD_LANES(16) FWD_LANES(32)
+#undef FWD_LANES
+    default:
+      return launch_fwd_lanes<T, 0>(src, sx, sy, out, B, R, W, D, H, C,
+                                    stream);
+  }
 }
 
 template <typename T>
@@ -535,15 +399,6 @@ int sweep_warp_fwd_bf16(const void* src, const void* sx, const void* sy,
                         void* stream) {
   return launch_fwd<__nv_bfloat16>(src, sx, sy, out, B, R, W, D, H, C,
                                    static_cast<cudaStream_t>(stream));
-}
-
-int sweep_warp_fwd_step_bf16(int planes, int share, int stream_hint,
-                             int mode, int threads, const void* src,
-                             const void* sx, const void* sy, void* out, int B,
-                             int R, int W, int D, int H, int C, void* stream) {
-  return launch_step(planes, share, stream_hint, mode, threads, src, sx, sy,
-                     out, B, R, W, D, H, C,
-                     static_cast<cudaStream_t>(stream));
 }
 
 int sweep_warp_bwd_f32(const void* g, const void* sx, const void* sy,

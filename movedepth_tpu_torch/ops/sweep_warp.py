@@ -40,8 +40,6 @@ _SIGNATURES = {
     "sweep_warp_corr_supported": ([ctypes.c_int] * 2, ctypes.c_int)}
 _WARP_SIGNATURES = {f"sweep_warp_{d}_{t}": (_WARP_ARGTYPES, ctypes.c_int)
                     for d in ("fwd", "bwd") for t in ("f32", "bf16")}
-_WARP_SIGNATURES["sweep_warp_fwd_step_bf16"] = (
-    [ctypes.c_int] * 5 + _WARP_ARGTYPES, ctypes.c_int)
 
 
 def grid_to_pixel(grid, height, width):
