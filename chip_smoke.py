@@ -21,6 +21,15 @@ without printing the final ok line:
 4b. the same float32 check at batch 1 and 8 bins with reg3d_c = 2, and
    with prior_scale = 3, reg3d_c = 64.
 5. serve: the inference CLI on 4 synthetic frames and a .pth folder.
+5b. eval, this slice's path: ``cli.export_gt`` and ``cli.evaluate`` (the
+   eigen protocol) at 640x192, ResNet18, 16 bins, bfloat16, on a synthetic
+   KITTI-raw tree of 12 test lines with calibration and velodyne scans:
+   12 kernel launches at batch 1, 6 at batch 5 with --post_process (a
+   partial last batch, two passes a batch); four finite tables each; the
+   float32 disparities on the card against the CPU under phase 4's gates
+   at batch 1 and at batch 2 with post_process, and one batch-5 forward's
+   outputs (cost_prob included); images/s of predict_disparities at batch
+   1 and 5 on the 12 lines repeated to 240, two passes each.
 6. throughput: forward_infer frames/s in bfloat16 at batch 128, with the
    kernel and with its plain version in turns (twice each), and at batch 1.
 7. train kernels: the sweep warp and the border image warp, forward and
@@ -646,6 +655,206 @@ def phase_serve(cpu_models):
         log(f"[serve] 4 finite, positive (192, 640) depth maps: {depths}")
     if launches != 3:  # frame 0 is mono-only; frames 1-3 run the MVS path
         raise RuntimeError(f"expected 3 kernel launches, got {launches}")
+    return launches
+
+
+def _eval_cli(tag, args):
+    """``cli.evaluate.main(args)`` in this process with the launch count
+    set to 0 just before; returns (its results, its output, the launches
+    counted, the launches it printed)."""
+    import contextlib
+    import io
+    import torch
+    from movedepth_tpu_torch.cli import evaluate
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+    out = io.StringIO()
+    SW.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = evaluate.main(args)
+    torch.cuda.synchronize()
+    launches = SW.launches
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[eval]   {line}")
+    printed = [json.loads(ln.split(": ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("kernel launches: ")]
+    log(f"[eval] {tag}: cli.evaluate in {time.perf_counter() - t0:.1f} s")
+    return results, text, launches, printed
+
+
+def _check_tables(tag, results, text):
+    """Four finite tables, and the oracle at least as good as either
+    branch."""
+    import numpy as np
+    names = re.findall(r"(\w+) results:", text)
+    if names != ["mono", "mvs", "fused", "upbound"]:
+        raise RuntimeError(f"{tag}: printed tables {names}")
+    if not all(np.isfinite(r).all() for r in results.values()):
+        raise RuntimeError(f"{tag}: a metric is not finite: {results}")
+    if not results["upbound"][0] <= min(results["mono"][0],
+                                        results["mvs"][0]):
+        raise RuntimeError(f"{tag}: upbound abs_rel above a branch's")
+
+
+def _check_disparities(label, got, want):
+    """Hold ``predict_disparities``'s (mono, mvs, fused) card disparities
+    against the CPU's: the mono one under disp_mono's gates, the MVS one
+    under depth_mvs's (x and 1/x have the same relative error to first
+    order); the fused one, like phase 4's depth_fused, finite."""
+    import torch
+    failed = []
+    for name, key, g, w in zip(("mono", "mvs", "fused"),
+                               ("disp_mono", "depth_mvs", None), got, want):
+        g, w = torch.from_numpy(g), torch.from_numpy(w)
+        if not torch.isfinite(g).all():
+            failed.append(f"{name} not finite")
+        st = _stats(g, w)
+        log(f"{label} float32 card vs CPU {name} disparity: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in st.items()))
+        failed += [f"{name}.{k} {st[k]:.3e} > {bound}"
+                   for (gate, k), bound in GATES.items()
+                   if gate == key and not st[k] <= bound]
+    if failed:
+        raise RuntimeError(f"{label} card vs CPU gates failed: "
+                           + "; ".join(failed))
+
+
+def _eval_batch(data, split_dir, bsz, device):
+    """The first batch of ``bsz`` test lines as ``predict_disparities``
+    loads it, on ``device``."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch.data.kitti import KITTIRawDataset, readlines
+    from movedepth_tpu_torch.data.loader import Loader
+    cfg = Config()
+    lines = readlines(os.path.join(split_dir, "test_files.txt"))[:bsz]
+    dataset = KITTIRawDataset(data, lines, cfg.height, cfg.width,
+                              cfg.matching_ids, is_train=False,
+                              load_depth=False)
+    batch = next(iter(Loader(dataset, bsz, shuffle=False, drop_last=False,
+                             num_workers=4).epoch(0)))
+    return {k: torch.from_numpy(batch[k]).to(device)
+            for k in ("color", "K", "inv_K")}
+
+
+def phase_eval(cpu_models, card):
+    """This slice's path: the eigen evaluation at full width (the shipped
+    Config(): 640x192, ResNet18, 16 bins, bfloat16) with phase 5's weights
+    as a .pth folder, on a synthetic KITTI-raw tree of EVAL_LINES test
+    lines with calibration and velodyne scans. Exports the GT with
+    ``cli.export_gt``, runs ``cli.evaluate`` at batch 1 (a launch a line)
+    and at batch 5 with ``--post_process`` (a partial last batch, two
+    passes a batch), holds float32 card disparities against the CPU's on 2
+    images under phase 4's gates (at batch 1, and at batch 2 with
+    ``post_process``) and one batch-5 forward's outputs, and times
+    ``predict_disparities`` on the lines repeated to EVAL_TIMED_LINES.
+    Returns the launches of the two CLI runs."""
+    import numpy as np
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.cli import export_gt
+    from movedepth_tpu_torch.eval import evaluate as E
+
+    n = EVAL_LINES
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "kitti")
+        splits = _write_eval_tree(data)
+        weights = os.path.join(tmp, "weights")
+        os.makedirs(weights)
+        for name, m in cpu_models.items():
+            torch.save(m.state_dict(), os.path.join(weights, f"{name}.pth"))
+
+        t0 = time.perf_counter()
+        gt_path = export_gt.main(["--data_path", data, "--splits_dir",
+                                  splits, "--split", "eigen"])
+        gt = E.load_gt_depths(gt_path)
+        inside = [int(E.eigen_mask(g).sum()) for g in gt]
+        log(f"[eval] cli.export_gt: {len(gt)} maps in "
+            f"{time.perf_counter() - t0:.1f} s, shapes "
+            f"{sorted({g.shape for g in gt})}, valid pixels in the eigen "
+            f"crop {min(inside)}-{max(inside)}")
+        if (len(gt) != n or any(g.shape != (375, 1242) for g in gt)
+                or min(inside) < 100):
+            raise RuntimeError("the exported GT is not 12 sparse 375x1242 "
+                               "maps filling the eigen crop")
+
+        common = ["--data_path", data, "--load_weights_folder", weights,
+                  "--splits_dir", splits, "--num_workers", "8"]
+        launches = {}
+        for tag, extra, want in (
+                ("batch_1", ["--batch_size", "1"], n),
+                ("batch_5_post_process", ["--batch_size", "5",
+                                          "--post_process"],
+                 2 * math.ceil(n / 5))):
+            results, text, count, printed = _eval_cli(tag, common + extra)
+            _check_tables(tag, results, text)
+            log(f"[eval] {tag}: four finite tables; sweep_warp_corr "
+                f"launched {count} times (printed {printed}), expected "
+                f"{want}")
+            if count != want or printed != [{"sweep_warp_corr": want}]:
+                raise RuntimeError(f"{tag}: expected {want} launches")
+            launches[tag] = count
+
+        # float32 on the card against the CPU, on the first 2 images: at
+        # batch 1, and at batch 2 with post_process (both passes of a batch
+        # blended); then one batch-5 forward's outputs, cost_prob included
+        cfg32 = Config(compute_dtype="float32")
+        models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
+        eigen = os.path.join(splits, "eigen")
+        for label, bsz, cfg_run in (
+                ("batch 1", 1, cfg32),
+                ("batch 2 post_process", 2, cfg32.replace(post_process=True))):
+            got, want = (E.predict_disparities(on, cfg_run, data, eigen, bsz,
+                                               limit=2, device=dev)
+                         for on, dev in ((models, "cuda"),
+                                         (cpu_models, "cpu")))
+            _check_disparities(f"[eval] {label}", got, want)
+            rows = {dev: E.evaluate_disparities(*p[:2], gt[:2],
+                                                pred_disps_fused=p[2])
+                    for dev, p in (("card", got), ("CPU", want))}
+            for dev, res in rows.items():
+                log(f"[eval] {label} float32 {dev} rows on 2 images: "
+                    + "; ".join(f"{k} " + " ".join(f"{v:.4f}" for v in r)
+                                for k, r in res.items()))
+        with torch.no_grad():
+            _check_gates("[eval] batch 5", *(
+                P.forward_infer_fused(on, _eval_batch(data, eigen, 5, dev),
+                                      cfg32)
+                for on, dev in ((models, "cuda"), (cpu_models, "cpu"))))
+        log("[eval] float32 card vs CPU at batch 1, batch 2 with "
+            "post_process and batch 5: phase 4's gates pass")
+
+        # throughput of predict_disparities in the shipped bfloat16 config,
+        # on the 12 lines repeated to EVAL_TIMED_LINES (seconds a pass)
+        timed = os.path.join(splits, "timed")
+        os.makedirs(timed)
+        lines = [f"{DRIVE} {i} l" for i in range(1, n + 1)]
+        n_timed = EVAL_TIMED_LINES
+        with open(os.path.join(timed, "test_files.txt"), "w") as f:
+            f.write("\n".join(lines * (n_timed // n)))
+        cfg = Config()
+        for bsz in (1, 5):
+            E.predict_disparities(models, cfg, data, timed, bsz, limit=2 * bsz,
+                                  device="cuda")  # warm (cuDNN autotuning)
+            for run in range(2):
+                t0 = time.perf_counter()
+                preds = E.predict_disparities(models, cfg, data, timed, bsz,
+                                              device="cuda")
+                sec = time.perf_counter() - t0
+                log(f"[eval] predict_disparities bfloat16 batch {bsz}, pass "
+                    f"{run + 1}: {n_timed} images in {sec:.3f} s, "
+                    f"{n_timed / sec:.2f} "
+                    f"images/s (JPEG decode and resize included); {card}")
+        t0 = time.perf_counter()
+        E.evaluate_disparities(*preds[:2], gt[np.arange(n_timed) % n],
+                               pred_disps_fused=preds[2])
+        log(f"[eval] evaluate_disparities (host) on {n_timed} images: "
+            f"{(time.perf_counter() - t0) / n_timed:.4f} s per image; "
+            f"{card}")
+    log(f"[eval] phase 5b: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1343,14 +1552,15 @@ def phase_train_throughput(cpu_models, card):
     return l1
 
 
-def _write_kitti_tree(root, frames=30):
-    """A KITTI-raw layout of ``frames`` synthetic 1242x375 JPEGs: one
-    smooth random texture panned 8 pixels a frame (a camera moving
-    sideways), 26 train lines (frames 1-26) and 2 val lines (27, 28)."""
+DRIVE = "2011_09_26/2011_09_26_drive_0001_sync"
+
+
+def _write_frames(root, frames):
+    """``frames`` synthetic 1242x375 JPEGs of drive DRIVE: one smooth
+    random texture panned 8 pixels a frame (a camera moving sideways)."""
     import numpy as np
     from PIL import Image
-    drive = "2011_09_26/2011_09_26_drive_0001_sync"
-    img_dir = os.path.join(root, drive, "image_02", "data")
+    img_dir = os.path.join(root, DRIVE, "image_02", "data")
     os.makedirs(img_dir)
     rng = np.random.default_rng(0)
     small = rng.uniform(0, 255, (24, 100, 3)).astype(np.uint8)
@@ -1359,13 +1569,64 @@ def _write_kitti_tree(root, frames=30):
     for i in range(frames):
         pan.crop((8 * i, 0, 8 * i + 1242, 375)).save(
             os.path.join(img_dir, f"{i:010d}.jpg"), quality=90)
+
+
+def _write_kitti_tree(root, frames=30):
+    """A KITTI-raw layout of ``frames`` synthetic 1242x375 JPEGs
+    (``_write_frames``), 26 train lines (frames 1-26) and 2 val lines (27,
+    28)."""
+    _write_frames(root, frames)
     splits = os.path.join(root, "splits", "smoke")
     os.makedirs(splits)
     with open(os.path.join(splits, "train_files.txt"), "w") as f:
-        f.write("\n".join(f"{drive} {i} l" for i in range(1, 27)))
+        f.write("\n".join(f"{DRIVE} {i} l" for i in range(1, 27)))
     with open(os.path.join(splits, "val_files.txt"), "w") as f:
-        f.write("\n".join(f"{drive} {i} l" for i in (27, 28)))
+        f.write("\n".join(f"{DRIVE} {i} l" for i in (27, 28)))
     return os.path.join(root, "splits")
+
+
+# KITTI's published calibration of the 2011_09_26 drives (1242x375)
+CALIB_CAM = (
+    "S_rect_02: 1.242000e+03 3.750000e+02\n"
+    "R_rect_00: 9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 "
+    "9.999421e-01 -4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01\n"
+    "P_rect_02: 7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 "
+    "0.000000e+00 7.215377e+02 1.728540e+02 2.163791e-01 0.000000e+00 "
+    "0.000000e+00 1.000000e+00 2.745884e-03\n")
+CALIB_VELO = (
+    "R: 7.533745e-03 -9.999714e-01 -6.166020e-04 1.480249e-02 "
+    "7.280733e-04 -9.998902e-01 9.998621e-01 7.523790e-03 1.480755e-02\n"
+    "T: -4.069766e-03 -7.631618e-02 -2.717806e-01\n")
+EVAL_LINES = 12
+EVAL_TIMED_LINES = 240  # the 12 repeated: a timed pass lasts seconds
+
+
+def _write_eval_tree(root, lines=EVAL_LINES):
+    """The KITTI-raw layout the eigen evaluation reads: ``lines`` + 1
+    frames (``_write_frames``), the drive's calibration, a velodyne scan
+    per frame (20000 points 5-60 m ahead, 20 m either side, from the road
+    to 1.5 m up: a sparse fill of the eigen crop) and an eigen
+    ``test_files.txt`` of frames 1..lines. Returns the splits directory."""
+    import numpy as np
+    _write_frames(root, lines + 1)
+    date = os.path.join(root, DRIVE.split("/")[0])
+    with open(os.path.join(date, "calib_cam_to_cam.txt"), "w") as f:
+        f.write(CALIB_CAM)
+    with open(os.path.join(date, "calib_velo_to_cam.txt"), "w") as f:
+        f.write(CALIB_VELO)
+    velo = os.path.join(root, DRIVE, "velodyne_points", "data")
+    os.makedirs(velo)
+    rng = np.random.default_rng(1)
+    for i in range(lines + 1):
+        n = 20000
+        pts = np.stack([rng.uniform(5, 60, n), rng.uniform(-20, 20, n),
+                        rng.uniform(-1.7, 1.5, n), rng.uniform(0, 1, n)], 1)
+        pts.astype(np.float32).tofile(os.path.join(velo, f"{i:010d}.bin"))
+    splits = os.path.join(root, "splits")
+    os.makedirs(os.path.join(splits, "eigen"))
+    with open(os.path.join(splits, "eigen", "test_files.txt"), "w") as f:
+        f.write("\n".join(f"{DRIVE} {i} l" for i in range(1, lines + 1)))
+    return splits
 
 
 def _train_cli(args, timeout):
@@ -1522,6 +1783,7 @@ def main():
     cpu_models = phase_main_path()
     phase_group_configs()
     kernel["launches"] = phase_serve(cpu_models)
+    kernel["launches_eval"] = phase_eval(cpu_models, card)
     phase_throughput(cpu_models, card)
     sweep_kernels, gen = phase_sweep_warp(card)
     image_kernels, image_inputs = phase_train_kernels(card, gen)

@@ -8,13 +8,14 @@ Frames are read in sorted order as one video. Frame t gets the MVS depth
 with frame t-1 as its matching frame, PoseNet supplying the relative pose;
 the first frame gets the mono depth. ``--mono_only`` gives every frame the
 mono depth, ``--fused`` the learned mono/MVS blend. Writes
-``<name>_depth.npy`` (H, W) float32 metric depth per frame. Intrinsics
-default to the normalized KITTI K at the processed size; ``--fx`` etc. (in
-pixels at that size) override them.
+``<name>_depth.npy`` (H, W) float32 metric depth per frame and, with
+``--save_png``, ``<name>_disp.png``, the plasma-coloured disparity.
+Intrinsics default to the normalized KITTI K at the processed size;
+``--fx`` etc. (in pixels at that size) override them.
 
 ``--load_weights_folder`` is a reference folder of per-model ``.pth``
-files. Orbax checkpoints of the JAX package and ``--save_png`` are not
-ported yet (ROADMAP).
+files (or a checkpoint folder of the port's trainer). Orbax checkpoints of
+the JAX package are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from movedepth_tpu_torch.cli.options import add_config_args, config_from_args
 from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch import pipeline as P
 from movedepth_tpu_torch.models import build_models
+from movedepth_tpu_torch.ops.colormap import colormap
 from movedepth_tpu_torch.weights import load_reference_folder
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
@@ -67,8 +69,17 @@ def load_models(cfg: Config, device):
     return models
 
 
+def _save_outputs(out_dir, name, depth, png: bool):
+    np.save(os.path.join(out_dir, f"{name}_depth.npy"),
+            depth.astype(np.float32))
+    if png:
+        disp = 1.0 / np.maximum(depth, 1e-6)
+        rgb = (colormap(disp) * 255).astype(np.uint8).transpose(1, 2, 0)
+        Image.fromarray(rgb).save(os.path.join(out_dir, f"{name}_disp.png"))
+
+
 def run(cfg: Config, image_path: str, out_dir: str, mono: bool, device,
-        K_override=None, fused: bool = False):
+        K_override=None, fused: bool = False, png: bool = False):
     files = sorted(f for f in os.listdir(image_path)
                    if f.lower().endswith(IMG_EXTS))
     if not files:
@@ -94,7 +105,7 @@ def run(cfg: Config, image_path: str, out_dir: str, mono: bool, device,
         else:
             depth = mvs_fn(models, batch, cfg)[depth_key]
         depth = depth[0].float().cpu().numpy()
-        np.save(os.path.join(out_dir, f"{name}_depth.npy"), depth)
+        _save_outputs(out_dir, name, depth, png)
         prev = img
         print(f"[{i + 1}/{len(files)}] {name}: "
               f"depth {depth.min():.2f}..{depth.max():.2f} m", flush=True)
@@ -113,6 +124,8 @@ def main(argv=None):
     parser.add_argument("--fused", action="store_true",
                         help="emit the learned mono/MVS fused depth "
                              "(mask_cnn uncertainty blend)")
+    parser.add_argument("--save_png", action="store_true",
+                        help="also write a colormapped disparity PNG")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda)")
     for k in ("fx", "fy", "cx", "cy"):
@@ -125,7 +138,7 @@ def main(argv=None):
         K = _normalized_kitti_K(cfg.height, cfg.width, args.fx, args.fy,
                                 args.cx, args.cy)
     run(cfg, args.image_path, args.out_dir, args.mono_only, args.device, K,
-        fused=args.fused)
+        fused=args.fused, png=args.save_png)
 
 
 if __name__ == "__main__":

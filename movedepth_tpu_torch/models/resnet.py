@@ -13,12 +13,19 @@ import torch.nn.functional as F
 
 from movedepth_tpu_torch.models.layers import max_pool_3x3_s2
 
-# arch -> (block, blocks per stage); 34/101/152 are ROADMAP work
-RESNET_BLOCKS = {18: ("basic", (2, 2, 2, 2)), 50: ("bottleneck", (3, 4, 6, 3))}
+# arch -> (block, blocks per stage), torchvision's tables
+RESNET_BLOCKS = {
+    18: ("basic", (2, 2, 2, 2)),
+    34: ("basic", (3, 4, 6, 3)),
+    50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
+}
 
 
 def encoder_channels(arch):
-    """Per-level feature channels of the 5-level pyramid."""
+    """Per-level feature channels of the 5-level pyramid: the bottleneck
+    encoders (arch > 34) widen levels 1-4 four times."""
     return (64, 64, 128, 256, 512) if arch <= 34 else (64, 256, 512, 1024,
                                                        2048)
 
@@ -79,9 +86,8 @@ class ResNetEncoder(nn.Module):
     def __init__(self, arch=18, num_input_images=1):
         super().__init__()
         if arch not in RESNET_BLOCKS:
-            raise NotImplementedError(
-                f"ResNet{arch} is not ported yet (ROADMAP Queue 1 item 7d); "
-                "the port has ResNet18 and ResNet50")
+            raise ValueError(f"ResNet{arch}: res_arch must be one of "
+                             f"{sorted(RESNET_BLOCKS)}")
         kind, layers = RESNET_BLOCKS[arch]
         block = BasicBlock if kind == "basic" else Bottleneck
         enc = nn.Module()

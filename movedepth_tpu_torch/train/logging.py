@@ -2,8 +2,9 @@
 ``movedepth_tpu/train/logging.py``): tensorboard scalars and image panels,
 the terminal line with examples/s and ETA, for the one training process
 of the port. Without tensorboardX the scalars go to
-``<log>/metrics.jsonl``. Tensors are read with ``.detach().float().cpu()``;
-matplotlib is imported only where an image panel is written.
+``<log>/metrics.jsonl``. Tensors are read with ``.detach().float().cpu()``.
+Disparity panels use the port's own plasma table (``ops/colormap.py``), so
+no matplotlib is needed.
 """
 
 from __future__ import annotations
@@ -15,24 +16,14 @@ from typing import Dict
 
 import numpy as np
 
+from movedepth_tpu_torch.ops.colormap import colormap
+
 
 def _host(x) -> np.ndarray:
     """A tensor (or array) as a float32 numpy array on the host."""
     if hasattr(x, "detach"):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, dtype=np.float32)
-
-
-def colormap(x: np.ndarray, normalize: bool = True) -> np.ndarray:
-    """(H, W) -> (3, H, W) plasma colormap."""
-    import matplotlib.pyplot as plt
-
-    cmap = plt.get_cmap("plasma", 256)
-    v = np.asarray(x, dtype=np.float32)
-    if normalize:
-        ma, mi = float(v.max()), float(v.min())
-        v = (v - mi) / ((ma - mi) if ma != mi else 1e5)
-    return cmap(v)[..., :3].transpose(2, 0, 1)
 
 
 def sec_to_hm_str(t: float) -> str:

@@ -23,12 +23,10 @@ from __future__ import annotations
 
 import os
 import time
-from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from movedepth_tpu_torch import pipeline as P
 from movedepth_tpu_torch import weights as W
@@ -37,6 +35,10 @@ from movedepth_tpu_torch.data.kitti import (KITTIDepthDataset,
                                             KITTIOdomDataset,
                                             KITTIRawDataset, readlines)
 from movedepth_tpu_torch.data.loader import Loader
+from movedepth_tpu_torch.data.splits import split_file
+from movedepth_tpu_torch.eval.evaluate import (check_device,
+                                                compute_errors_np,
+                                                resize_depth)
 from movedepth_tpu_torch.models import build_models
 from movedepth_tpu_torch.train import checkpoints as C
 from movedepth_tpu_torch.train import state as S
@@ -47,19 +49,8 @@ DATASETS = {
     "kitti_odom": KITTIOdomDataset,
     "kitti_depth": KITTIDepthDataset,
 }
-# the KITTI split lists shipped in the checkout (plain or gzipped text)
-BUNDLED_SPLITS = Path(__file__).resolve().parents[2] / "movedepth_tpu" \
-    / "splits"
 MONO_MODELS = ("pose_encoder", "pose", "mono_encoder", "mono_depth")
 GARG_SHAPE = (375, 1242)
-
-
-def resize_depth(depth: np.ndarray, shape=GARG_SHAPE) -> np.ndarray:
-    """Bilinear resize of a (H, W) depth map with half-pixel centres (the
-    rule of OpenCV's INTER_LINEAR), in float32."""
-    t = torch.from_numpy(np.ascontiguousarray(depth, np.float32))[None, None]
-    return F.interpolate(t, size=shape, mode="bilinear",
-                         align_corners=False)[0, 0].numpy()
 
 
 def garg_depth_metrics(depth_pred: np.ndarray, depth_gt: np.ndarray) -> Dict:
@@ -69,7 +60,8 @@ def garg_depth_metrics(depth_pred: np.ndarray, depth_gt: np.ndarray) -> Dict:
              "da/a2", "da/a3"]
     accs = []
     for i in range(depth_pred.shape[0]):
-        pred = np.clip(resize_depth(depth_pred[i]), 1e-3, 80)
+        pred = np.clip(resize_depth(depth_pred[i], GARG_SHAPE), 1e-3,
+                       80)
         gt = depth_gt[i]
         mask = (gt > 1e-3) & (gt < 80)
         crop = np.zeros_like(mask)
@@ -79,17 +71,7 @@ def garg_depth_metrics(depth_pred: np.ndarray, depth_gt: np.ndarray) -> Dict:
             continue
         p, g = pred[mask], gt[mask]
         p *= np.median(g) / np.median(p)
-        p = np.clip(p, 1e-3, 80)
-        thresh = np.maximum(g / p, p / g)
-        accs.append([
-            np.mean(np.abs(g - p) / g),
-            np.mean((g - p) ** 2 / g),
-            np.sqrt(np.mean((g - p) ** 2)),
-            np.sqrt(np.mean((np.log(g) - np.log(p)) ** 2)),
-            (thresh < 1.25).mean(),
-            (thresh < 1.25 ** 2).mean(),
-            (thresh < 1.25 ** 3).mean(),
-        ])
+        accs.append(compute_errors_np(g, np.clip(p, 1e-3, 80)))
     if not accs:
         return {}
     return dict(zip(names, np.mean(accs, 0)))
@@ -101,21 +83,19 @@ class Trainer:
     def __init__(self, cfg: Config, split_dir: Optional[str] = None,
                  device="cuda", profile_steps: int = 0):
         self.cfg = validate(cfg)
-        self.device = torch.device(device)
+        self.device = check_device(device)
         if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: the trainer runs on the "
-                                   "card unless it is given device='cpu'")
             torch.backends.cudnn.benchmark = True  # fixed training shapes
         self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
         self.models = build_models(cfg, self.device)
 
         # data
         dataset_cls = DATASETS[cfg.dataset]
-        split_dir = split_dir or str(BUNDLED_SPLITS / cfg.split)
         img_ext = ".png" if cfg.png else ".jpg"
-        train_files = readlines(os.path.join(split_dir, "train_files.txt"))
-        val_files = readlines(os.path.join(split_dir, "val_files.txt"))
+        train_files = readlines(split_file(cfg.split, "train_files.txt",
+                                           split_dir))
+        val_files = readlines(split_file(cfg.split, "val_files.txt",
+                                         split_dir))
         self.train_dataset = dataset_cls(
             cfg.data_path, train_files, cfg.height, cfg.width, cfg.frame_ids,
             is_train=True, img_ext=img_ext, load_pose=cfg.load_pose,

@@ -581,3 +581,77 @@ def test_forward_infer_fused_card_matches_cpu_group_configs(device,
     rel = ((got["depth_mvs"].cpu() - want["depth_mvs"]).abs()
            / want["depth_mvs"].abs())
     assert rel.mean().item() <= 6e-3
+
+
+def _eval_tree(root, lines=3):
+    """4 frames of one drive and an eigen test list of frames 1..lines,
+    each with its previous frame."""
+    from PIL import Image
+    drive = "2011_09_26/2011_09_26_drive_0002_sync"
+    img_dir = root / drive / "image_02" / "data"
+    img_dir.mkdir(parents=True)
+    rng = np.random.default_rng(1)
+    for i in range(lines + 1):
+        small = rng.uniform(0, 255, (8, 12, 3))
+        Image.fromarray(np.repeat(np.repeat(small, 8, 0), 8, 1)
+                        .astype(np.uint8)).save(img_dir / f"{i:010d}.jpg")
+    split_dir = root / "eigen"
+    split_dir.mkdir()
+    (split_dir / "test_files.txt").write_text(
+        "\n".join(f"{drive} {i} l" for i in range(1, lines + 1)))
+    return str(root), str(split_dir)
+
+
+def test_predict_disparities_card_matches_cpu(device, tmp_path):
+    """The evaluation's forwards at batch 2 with the flipped second pass
+    (3 lines: a full batch and a partial one), float32, 64x96: the card
+    against the CPU, and 2 kernel launches per batch."""
+    from movedepth_tpu_torch.eval import evaluate as E
+    data, split_dir = _eval_tree(tmp_path)
+    cfg = Config(height=64, width=96, num_depth_bins=8,
+                 compute_dtype="float32", post_process=True)
+    models = build_models(cfg, "cpu")
+    want = E.predict_disparities(models, cfg, data, split_dir, 2,
+                                 num_workers=2, device="cpu")
+    models = {k: m.to(device) for k, m in models.items()}
+    before = SW.launches
+    got = E.predict_disparities(models, cfg, data, split_dir, 2,
+                                num_workers=2, device=device)
+    assert SW.launches - before == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (3, 64, 96)
+    # the gates of test_forward_infer_fused_card_matches_cpu
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-5)
+    for g, w, name in zip(got[1:], want[1:], ("mvs", "fused")):
+        assert (np.abs(g - w) / np.abs(w)).mean() <= 6e-3, name
+
+
+def test_cli_evaluate_launches_on_card(device, tmp_path, capsys):
+    """One run of the evaluation CLI on the card at batch 1: one kernel
+    launch per line, printed by the CLI, and four finite tables."""
+    import re
+    from movedepth_tpu_torch.cli import evaluate as cli
+    data, split_dir = _eval_tree(tmp_path)
+    gt = np.empty(3, dtype=object)
+    for i in range(3):
+        gt[i] = np.random.default_rng(i).uniform(5, 60, (96, 320)).astype(
+            np.float32)
+    np.savez_compressed(tmp_path / "eigen" / "gt_depths.npz", data=gt)
+    cfg = Config(height=64, width=96, num_depth_bins=8)
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    for name, m in build_models(cfg, "cpu").items():
+        torch.save(m.state_dict(), weights / f"{name}.pth")
+    SW.launches = 0
+    results = cli.main(["--data_path", data, "--load_weights_folder",
+                        str(weights), "--splits_dir", str(tmp_path),
+                        "--height", "64", "--width", "96",
+                        "--num_depth_bins", "8", "--batch_size", "1",
+                        "--num_workers", "2"])
+    out = capsys.readouterr().out
+    assert SW.launches == 3
+    assert 'kernel launches: {"sweep_warp_corr": 3}' in out
+    assert re.findall(r"(\w+) results:", out) == ["mono", "mvs", "fused",
+                                                  "upbound"]
+    for name, row in results.items():
+        assert np.isfinite(row).all(), name

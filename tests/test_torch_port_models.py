@@ -88,6 +88,12 @@ CASES = {
                      lambda: TM.ResNetEncoder(18, num_input_images=2)),
     "mono_encoder_resnet50": (_resnet_case(50, 1, (32, 64)),
                               lambda: TM.ResNetEncoder(50)),
+    # 34: the basic blocks at depth; 101: the bottleneck depths (a 23-block
+    # stage), at 64x96
+    "mono_encoder_resnet34": (_resnet_case(34, 1, (64, 96)),
+                              lambda: TM.ResNetEncoder(34)),
+    "mono_encoder_resnet101": (_resnet_case(101, 1, (64, 96)),
+                               lambda: TM.ResNetEncoder(101)),
 }
 
 
@@ -287,7 +293,31 @@ def test_max_pool_3x3_s2(rng):
 def test_build_models_defers_unported_options():
     from movedepth_tpu_torch import Config
     for cfg, what in ((Config(num_depth_bins=4), "Reg2D"),
-                      (Config(dcn=True), "dcn"),
-                      (Config(res_arch=34), "ResNet34")):
+                      (Config(dcn=True), "dcn")):
         with pytest.raises(NotImplementedError, match=what):
             TM.build_models(cfg)
+    # every ResNet depth is ported; an arch torchvision lacks is refused
+    with pytest.raises(ValueError, match="ResNet26"):
+        TM.build_models(Config(res_arch=26), "cpu")
+
+
+def test_resnet152_shapes_and_key_names():
+    """ResNet152 (too deep to run against JAX in the CPU suite): its
+    feature shapes, and its state_dict keys and shapes against the JAX
+    encoder's variables through the JAX package's own converter."""
+    enc = TM.ResNetEncoder(152)
+    assert TM.encoder_channels(152) == (64, 256, 512, 1024, 2048)
+    assert TM.encoder_channels(34) == (64, 64, 128, 256, 512)
+    with torch.no_grad():
+        feats = enc(torch.zeros(1, 3, 64, 96))
+    assert [tuple(f.shape) for f in feats] == [
+        (1, 64, 32, 48), (1, 256, 16, 24), (1, 512, 8, 12),
+        (1, 1024, 4, 6), (1, 2048, 2, 3)]
+    state = {k: v.numpy() for k, v in enc.state_dict().items()}
+    assert "encoder.layer3.35.conv3.weight" in state
+    assert "encoder.layer2.7.bn3.running_var" in state
+    jm = JM.ResNetEncoder(arch=152, dtype=F32)
+    want = jax.eval_shape(lambda k, x: jm.init(k, x, False),
+                          jax.random.PRNGKey(0), jnp.zeros((1, 64, 96, 3)))
+    got = TI.convert_state_dict("mono_encoder", state)
+    assert jax.tree.map(np.shape, got) == jax.tree.map(np.shape, want)

@@ -122,6 +122,22 @@ def test_forward_infer_fused_two_groups():
     _close(got["disp_fused"], want["disp_fused"], rtol=1e-4, atol=1e-6)
 
 
+def test_forward_infer_fused_resnet50():
+    """res_arch = 50: the bottleneck encoders (x4 widths into the depth and
+    pose decoders) end to end, under the same tolerances."""
+    cfg = CFG.replace(res_arch=50)
+    states, models, _, _, batch, want = _setup(cfg)
+    assert states["mono_encoder"]["encoder.layer4.2.conv3.weight"].shape == (
+        2048, 512, 1, 1)
+    got = P.forward_infer_fused(models, P.as_batch(batch, "cpu"), cfg)
+    _close(got["disp_mono"], want["disp_mono"], atol=2e-5)
+    _close(got["cost_prob"], want["cost_prob"], atol=1e-4)
+    _close(got["disp_mvs"], want["disp_mvs"], atol=1e-4)
+    _close(got["trust_mono"], want["trust_mono"], atol=1e-4)
+    _close(got["depth_fused"], want["depth_fused"], rtol=1e-4, atol=1e-3)
+    _close(got["disp_fused"], want["disp_fused"], rtol=1e-4, atol=1e-6)
+
+
 def test_forward_mono_infer(setup):
     _, models, variables, jmodels, batch, _ = setup
     want = JP.forward_mono_infer(jmodels, variables,
