@@ -8,9 +8,11 @@ without printing the final ok line:
 
 1. device: a CUDA card must be present (the CPU is never used instead);
    prints its name and power limit from nvidia-smi.
-2. build: compiles every csrc/*.cu with nvcc for sm_90a, all at once;
-   prints ptxas's registers, spills and static shared memory of the
-   sweep-warp, warp-correlate (C=32, G=16) and image-warp kernels.
+2. build: compiles every csrc/*.cu with nvcc for sm_90a, all at once, and
+   the host loader csrc/loader.cpp with g++ beside them (its route: a,
+   libjpeg and libpng; b, Pillow decode; and its build seconds); prints
+   ptxas's registers, spills and static shared memory of the sweep-warp,
+   warp-correlate (C=32, G=16) and image-warp kernels.
 3. kernel: sweep_warp_corr against its plain PyTorch version on the card
    at the shipped prior-scale shape, in float32 and bfloat16, plus an
    out-of-frame case, and at every (C, G) pair it is built for on a small
@@ -58,11 +60,21 @@ without printing the final ok line:
 9. train throughput: train_step in bfloat16 autocast at batch 12, with the
    kernels and with this script swapping in the plain versions, in turns
    (twice each); 9b: with kernel_l1 on.
-10. train CLI, this slice's path: ``python -m movedepth_tpu_torch.cli.train``
-   on a KITTI-layout tree of synthetic 1242x375 JPEGs at 640x192, batch 12,
-   bfloat16, --kernel_l1, 2 epochs with validation and checkpoints, then a
-   resume from ``last`` for a third epoch; its kernel launches, wall
-   ms/step against phase 9b's train_step.
+10. train CLI: ``python -m movedepth_tpu_torch.cli.train`` on a
+   KITTI-layout tree of synthetic 1242x375 JPEGs at 640x192, batch 12,
+   bfloat16, --kernel_l1, with the native loader (its default; the CLI
+   must say so), 2 epochs with validation and checkpoints, then a resume
+   from ``last`` for a third epoch; its kernel launches, wall ms/step
+   against phase 9b's train_step.
+10a. the train loader, this slice's path: ``Loader.epoch`` over 240 train
+   lines of synthetic 1242x375 JPEGs at batch 12, 640x192, with flips and
+   jitter, 12 threads: the PIL path and the C++ loader in turns, two
+   passes each (samples/s, ms/batch, the host's CPU count); the native
+   samples against the PIL samples of the same indices, each read timed
+   one sample at a time.
+10b. the train CLI for two epochs of 10 steps at batch 12 with validation
+   at its default cadence, with --no-native_loader and with the native
+   loader: wall ms/step of each epoch against phase 9b's train_step.
 11. the stage ablations of the sweep kernel at batch 128 (``full`` bit for
    bit the shipped kernel), and the public wrapper against the bare launch.
 
@@ -91,6 +103,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 KERNEL_SHAPE = dict(B=16, R=48, W=160, C=32, D=16, G=16)
 # the shipped train step's kernel shapes: batch 12, the prior-scale sweep
@@ -233,8 +246,19 @@ def phase_build():
     from movedepth_tpu_torch import native
     from movedepth_tpu_torch import profile_kernel_variants as PKV
     from movedepth_tpu_torch.ops import image_warp, sweep_warp
+    from movedepth_tpu_torch.data import native_loader as NL
     t0 = time.perf_counter()
-    native.build_all(KERNELS)
+    # the host loader's g++ beside the kernels' nvcc processes
+    with ThreadPoolExecutor(1) as pool:
+        loader = pool.submit(NL.get)
+        native.build_all(KERNELS)
+        loader = loader.result()
+    report = native.build_reports.get(f"loader-{loader.route}")
+    log(f"[build] loader: {loader.describe()}; {native.cxx()} "
+        f"{' '.join(native.LOADER_FLAGS)} "
+        f"{' '.join(sum(native.LOADER_ROUTES[loader.route], ()))} -> "
+        f"{native.loader_path(loader.route).name}, "
+        + (f"{report[0]:.1f} s" if report else "already built"))
     sweep_warp.kernel_library()
     sweep_warp.warp_library()
     image_warp.kernel_library()
@@ -1631,8 +1655,8 @@ def _write_eval_tree(root, lines=EVAL_LINES):
 
 def _train_cli(args, timeout):
     """Run ``python -m movedepth_tpu_torch.cli.train`` with ``args`` from
-    the checkout; returns (its output lines, its epoch ms/step by epoch,
-    its kernel launches)."""
+    the checkout; returns (its output lines, {epoch: (steps, wall ms/step,
+    wall ms/step after the first step or None)}, its kernel launches)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
@@ -1646,9 +1670,11 @@ def _train_cli(args, timeout):
         raise RuntimeError(f"the train CLI exited {proc.returncode}:\n"
                            + proc.stderr[-4000:])
     log(f"[cli] exit 0 after {time.perf_counter() - t0:.1f} s")
-    epochs = {int(m.group(1)): (int(m.group(2)), float(m.group(3)))
+    epochs = {int(m.group(1)): (int(m.group(2)), float(m.group(3)),
+                                float(m.group(4)) if m.group(4) else None)
               for m in (re.match(r"epoch (\d+): (\d+) steps, ([\d.]+) "
-                                 r"ms/step", ln) for ln in lines) if m}
+                                 r"ms/step wall(?:, ([\d.]+) after the "
+                                 r"first)?", ln) for ln in lines) if m}
     losses = [float(m.group(1)) for m in
               (re.search(r"\| loss: (\S+) \|", ln) for ln in lines) if m]
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -1672,10 +1698,11 @@ def _check_folders(models_dir, names, want_models):
 
 
 def phase_train_cli(l1_ms, card):
-    """This slice's path: the train CLI as a user runs it, at the shipped
-    width (640x192, batch 12, bfloat16) with --kernel_l1, 2 epochs of 2
-    steps with validation at every step and checkpoints, then a resume from
-    ``last`` for a third epoch. Returns the first run's kernel launches."""
+    """The train CLI as a user runs it, at the shipped width (640x192,
+    batch 12, bfloat16) with --kernel_l1 and the default native loader, 2
+    epochs of 2 steps with validation at every step and checkpoints, then
+    a resume from ``last`` for a third epoch. Returns the first run's
+    kernel launches."""
     from movedepth_tpu_torch.config import ALL_MODELS
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1686,9 +1713,14 @@ def phase_train_cli(l1_ms, card):
                   "smoke", "--split", "smoke", "--splits_dir", splits,
                   "--kernel_l1", "--weights_init", "scratch",
                   "--log_frequency", "1", "--num_workers", "8"]
-        _, epochs, launches = _train_cli(common + ["--num_epochs", "2"], 480)
+        lines, epochs, launches = _train_cli(common + ["--num_epochs", "2"],
+                                             480)
+        if not any(ln.startswith("data: native loader, route ")
+                   for ln in lines):
+            raise RuntimeError("the train CLI did not train with the native "
+                               "loader, its default")
         models_dir = os.path.join(log_dir, "smoke", "models")
-        if {e: n for e, (n, _) in epochs.items()} != {0: 2, 1: 2}:
+        if {e: n for e, (n, _, _) in epochs.items()} != {0: 2, 1: 2}:
             raise RuntimeError(f"expected 2 epochs of 2 steps: {epochs}")
         if not os.path.isfile(os.path.join(models_dir, "opt.json")):
             raise RuntimeError("no opt.json")
@@ -1713,10 +1745,137 @@ def phase_train_cli(l1_ms, card):
             f"{sorted(epochs2)}; kernel launches {launches2}")
         if step2 != 6 or sorted(epochs2) != [2] or epochs2[2][0] != 2:
             raise RuntimeError("the resume did not train epoch 2 from step 4")
-    walls = {e: ms for e, (_, ms) in sorted({**epochs, **epochs2}.items())}
+    walls = {e: ms for e, (_, ms, _) in
+             sorted({**epochs, **epochs2}.items())}
     log(f"[cli] trainer wall ms/step by epoch {walls} against train_step "
         f"with kernel_l1 {l1_ms:.3f} ms/step (phase 9b); {card}")
     return launches
+
+
+LOADER_LINES = 240  # phase 10a's train lines: 20 batches of 12
+CLI_STEPS = 10  # phase 10b's epoch
+
+
+def _write_loader_tree(root):
+    """Phase 10a's and 10b's KITTI-raw tree: LOADER_LINES + 2 synthetic
+    1242x375 JPEGs (``_write_frames``); split ``loader`` of CLI_STEPS
+    batches of train lines (1..120) and one batch of val lines. Returns
+    the splits directory."""
+    _write_frames(root, LOADER_LINES + 2)
+    splits = os.path.join(root, "splits")
+    os.makedirs(os.path.join(splits, "loader"))
+    n = CLI_STEPS * 12
+    with open(os.path.join(splits, "loader", "train_files.txt"), "w") as f:
+        f.write("\n".join(f"{DRIVE} {i} l" for i in range(1, n + 1)))
+    with open(os.path.join(splits, "loader", "val_files.txt"), "w") as f:
+        f.write("\n".join(f"{DRIVE} {i} l" for i in range(n + 1, n + 13)))
+    return splits
+
+
+def phase_loader(root, card):
+    """Phase 10a: the train loader on this host. ``Loader.epoch`` over the
+    train dataset of LOADER_LINES lines at the shipped batch 12, 640x192,
+    frame_ids (0, -1, 1), flips and jitter, ``cfg.num_workers`` threads:
+    the PIL path and the C++ loader in turns, two passes each; then the
+    native samples against the PIL samples of the same indices under the
+    JAX package's bounds (colour max < 0.06; jittered colour max < 0.08,
+    mean < 0.01), each sample's two reads timed one after the other from
+    this thread. Returns {path: [samples/s of each pass]}."""
+    import numpy as np
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch.data.kitti import KITTIRawDataset
+    from movedepth_tpu_torch.data.loader import Loader
+
+    cfg = Config()
+    files = [f"{DRIVE} {i} l" for i in range(1, LOADER_LINES + 1)]
+    sets = {label: KITTIRawDataset(root, files, cfg.height, cfg.width,
+                                   cfg.frame_ids, is_train=True,
+                                   seed=cfg.seed, native=native)
+            for label, native in (("PIL", False), ("native", True))}
+    log(f"[loader] {sets['native'].native.describe()}; os.cpu_count() "
+        f"{os.cpu_count()}, sched_getaffinity {len(os.sched_getaffinity(0))}"
+        f"; {cfg.num_workers} loader threads; {card}")
+    rates = {label: [] for label in sets}
+    for label in ("PIL", "native") * 2:
+        loader = Loader(sets[label], cfg.batch_size,
+                        num_workers=cfg.num_workers, seed=cfg.seed)
+        t0 = time.perf_counter()
+        n = batches = 0
+        for batch in loader.epoch(0):
+            n += batch["color"].shape[0]
+            batches += 1
+        dt = time.perf_counter() - t0
+        if batches != LOADER_LINES // cfg.batch_size:
+            raise RuntimeError(f"{label}: {batches} batches")
+        rates[label].append(n / dt)
+        log(f"[loader] {label}: {n} samples in {batches} batches, {dt:.3f} "
+            f"s: {n / dt:.2f} samples/s, {dt * 1e3 / batches:.1f} ms/batch")
+    spread = {k: (max(v) - min(v)) / min(v) for k, v in rates.items()}
+    log(f"[loader] samples/s PIL {rates['PIL']}, native {rates['native']}; "
+        f"native / PIL {np.mean(rates['native']) / np.mean(rates['PIL']):.3f}"
+        f"; pass-to-pass spread PIL {spread['PIL']:.1%}, native "
+        f"{spread['native']:.1%}")
+
+    colour, jit_max, jit_mean, jittered = 0.0, 0.0, 0.0, 0
+    serial = {label: 0.0 for label in sets}
+    for i in range(0, LOADER_LINES, 10):
+        t0 = time.perf_counter()
+        a = sets["native"][i]
+        t1 = time.perf_counter()
+        b = sets["PIL"][i]
+        serial["native"] += t1 - t0
+        serial["PIL"] += time.perf_counter() - t1
+        colour = max(colour, float(np.abs(a["color"] - b["color"]).max()))
+        if not np.array_equal(a["color"], a["color_aug"]):
+            jittered += 1
+            diff = np.abs(a["color_aug"] - b["color_aug"])
+            jit_max = max(jit_max, float(diff.max()))
+            jit_mean = max(jit_mean, float(diff.mean()))
+    n = LOADER_LINES // 10
+    log(f"[loader] one sample at a time from this thread (the C++ loader "
+        f"spreads a sample over 3 threads of its own), {n} samples: PIL "
+        f"{serial['PIL'] * 1e3 / n:.1f} ms/sample, native "
+        f"{serial['native'] * 1e3 / n:.1f} ms/sample")
+    log(f"[loader] native against PIL on {n} samples: "
+        f"colour max {colour:.4f} (< 0.06); {jittered} jittered: max "
+        f"{jit_max:.4f} (< 0.08), worst mean {jit_mean:.5f} (< 0.01)")
+    if not jittered or colour >= 0.06 or jit_max >= 0.08 or jit_mean >= 0.01:
+        raise RuntimeError("the native samples disagree with the PIL ones")
+    return rates
+
+
+def phase_loader_cli(root, splits, l1_ms, card):
+    """Phase 10b: the train CLI for epochs of CLI_STEPS steps at batch
+    12, 640x192, bfloat16, --kernel_l1, validation at its default cadence
+    (the first step of an epoch), with --no-native_loader and with the
+    default native loader; wall ms/step of each epoch (whole, and after
+    its first step) against phase 9b's train_step. The first epoch's
+    later steps read batches the loader queued during the process's first
+    step (13-17 s of cuDNN autotuning); the second epoch's loader starts
+    empty, as in a long run."""
+    walls = {}
+    for label, extra in (("PIL", ["--no-native_loader"]), ("native", [])):
+        log_dir = os.path.join(root, f"log_{label}")
+        lines, epochs, launches = _train_cli(
+            ["--data_path", root, "--log_dir", log_dir, "--model_name",
+             "loader", "--split", "loader", "--splits_dir", splits,
+             "--kernel_l1", "--weights_init", "scratch", "--num_epochs",
+             "2", *extra], 480)
+        want = ("data: PIL loader" if label == "PIL"
+                else "data: native loader, route ")
+        if not any(ln.startswith(want) for ln in lines):
+            raise RuntimeError(f"{label}: the CLI did not say {want!r}")
+        if {e: n for e, (n, _, _) in epochs.items()} != {0: CLI_STEPS,
+                                                        1: CLI_STEPS}:
+            raise RuntimeError(f"{label}: expected two epochs of "
+                               f"{CLI_STEPS} steps: {epochs}")
+        if not launches.get("warp_images_border_l1"):
+            raise RuntimeError(f"{label}: no L1 kernel launches {launches}")
+        walls[label] = {e: v[1:] for e, v in epochs.items()}
+    log(f"[cli-loader] epochs of {CLI_STEPS} steps, wall ms/step by epoch "
+        f"(whole epoch, after its first step): PIL {walls['PIL']}, native "
+        f"{walls['native']}; train_step with kernel_l1 {l1_ms:.3f} ms/step "
+        f"(phase 9b); {card}")
 
 
 def phase_variants():
@@ -1796,6 +1955,10 @@ def main():
     phase_train_path_l1(*phase8)
     l1_ms = phase_train_throughput(train_models, card)
     cli_launches = phase_train_cli(l1_ms, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        splits = _write_loader_tree(tmp)
+        phase_loader(tmp, card)
+        phase_loader_cli(tmp, splits, l1_ms, card)
     for rec in l1_kernels:
         rec["launches"] = cli_launches[rec["name"]]
     variants = phase_variants()

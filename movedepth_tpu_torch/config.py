@@ -3,8 +3,9 @@
 Every field keeps the JAX package's name and default, so an ``opt.json``
 written by either package loads in the other. Some fields steer only the
 TPU formulation (scoped-VMEM limits, kernel windows, the planar loss
-layout, the native loader, rematerialization); the port accepts them and
-reads the ones it implements. The TPU-only helpers of the JAX module
+layout, rematerialization); the port accepts them and reads the ones it
+implements. ``native_loader`` selects the port's own C++ loader, as it
+does the JAX package's. The TPU-only helpers of the JAX module
 (``xla_compiler_options``, ``KERNEL_TIERS``) are not copied.
 """
 
@@ -98,7 +99,8 @@ class Config:
     sweep_row_window: int = 8  # JAX package only
     sweep_col_window: int = 0  # JAX package only
     warp_col_window: int = 384  # JAX package only
-    # the C++ decode loader of the JAX package; the port reads with PIL
+    # the C++ loader (csrc/loader.cpp): decode, float Lanczos pyramid and
+    # jitter; off: PIL
     native_loader: bool = True
     planar_losses: bool = False  # JAX package only
     # the photometric L1 map from the image-warp kernel's epilogue

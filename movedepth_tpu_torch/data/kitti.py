@@ -1,26 +1,37 @@
 """Host-side KITTI datasets producing pipeline-layout samples: a copy of
-``movedepth_tpu/data/kitti.py`` on its PIL path.
+``movedepth_tpu/data/kitti.py``.
 
 Samples are numpy dicts in the pipeline's NHWC layout (no batch
 dimension); the randomness of a sample is a ``np.random.Generator`` drawn
 from (seed, epoch, index), so the same tree and seed give the JAX
-package's samples. The C++ decode loader of the JAX package
-(``native_loader``) is not ported: with it requested the dataset says once
-that it reads with PIL. The velodyne depth map is resized to the full
-KITTI resolution by :func:`resize_nearest` (OpenCV's INTER_NEAREST rule in
-numpy), so the port needs no OpenCV.
+package's samples. Two paths read the images:
+
+  * ``native=True`` (the trainer's default, ``native_loader``): the C++
+    loader (``data/native_loader.py``, ``csrc/loader.cpp``) decodes, flips
+    and builds the chained float Lanczos pyramid, and jittered samples get
+    the fused float jitter in C++, drawn from the same rng positions as
+    the PIL jitter. A loader that cannot be built raises; the dataset
+    never switches to PIL on its own. Robust training's random neighbour
+    offsets, and a sample whose frame 0 or both neighbours are missing,
+    take the PIL path, as in the JAX package;
+  * ``native=False``: PIL decode, Lanczos resizes in uint8 and the PIL
+    jitter.
+
+The velodyne depth map is resized to the full KITTI resolution by
+:func:`resize_nearest` (OpenCV's INTER_NEAREST rule in numpy), so the
+port needs no OpenCV.
 """
 
 from __future__ import annotations
 
 import gzip
 import os
-import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 from PIL import Image, ImageEnhance
 
+from movedepth_tpu_torch.data import native_loader
 from movedepth_tpu_torch.data.kitti_utils import (generate_depth_map,
                                                   load_odometry_poses)
 
@@ -89,6 +100,90 @@ def color_jitter(rng: np.random.Generator):
     return apply
 
 
+def _rgb_to_hsv_np(arr: np.ndarray):
+    """Vectorized float RGB->HSV on (H, W, 3) in [0, 1]."""
+    r, g, b = arr[..., 0], arr[..., 1], arr[..., 2]
+    v = arr.max(-1)
+    c = v - arr.min(-1)
+    safe_c = np.where(c == 0, 1.0, c)
+    h = np.where(
+        v == r, (g - b) / safe_c,
+        np.where(v == g, 2.0 + (b - r) / safe_c, 4.0 + (r - g) / safe_c))
+    h = np.where(c == 0, 0.0, h / 6.0) % 1.0
+    s = np.where(v == 0, 0.0, c / np.where(v == 0, 1.0, v))
+    return h, s, v
+
+
+def _hsv_to_rgb_np(h, s, v):
+    """Vectorized float HSV->RGB, inverse of :func:`_rgb_to_hsv_np`."""
+    i = np.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    i = i.astype(np.int32) % 6
+    out = np.choose(
+        i[..., None],
+        [np.stack([v, t, p], -1), np.stack([q, v, p], -1),
+         np.stack([p, v, t], -1), np.stack([p, q, v], -1),
+         np.stack([t, p, v], -1), np.stack([v, p, q], -1)])
+    return out
+
+
+def color_jitter_np(rng: np.random.Generator):
+    """Float counterpart of :func:`color_jitter` on [0, 1] float images.
+
+    Draws the same (b, c, s, h, op order) from the same rng positions as
+    the PIL version, then applies the math in float32: brightness x*b;
+    contrast blends toward the luma mean; saturation blends toward
+    per-pixel luma (ITU-R 601-2, PIL's convert('L')); hue rotates in
+    float HSV by int(h*255)/255, mod 1. It differs from the PIL path only
+    by PIL's uint8 rounding after every op."""
+    params, ops = draw_jitter_params(rng)
+    return _apply_jitter_np(params, ops)
+
+
+def draw_jitter_params(rng: np.random.Generator):
+    """The shared (b, c, s, h) factors and op order, drawn from the same
+    rng positions as :func:`color_jitter`, so PIL, numpy and the C++
+    ``md_jitter_batch`` see the same parameters."""
+    b = rng.uniform(0.8, 1.2)
+    c = rng.uniform(0.8, 1.2)
+    s = rng.uniform(0.8, 1.2)
+    h = rng.uniform(-0.1, 0.1)
+    ops = list(rng.permutation(4))
+    return (b, c, s, h), ops
+
+
+def _apply_jitter_np(params, ops):
+    b, c, s, h = params
+    luma_w = np.array([0.299, 0.587, 0.114], np.float32)
+
+    def apply(arr: np.ndarray) -> np.ndarray:
+        arr = arr.astype(np.float32)
+        for op in ops:
+            if op == 0:
+                arr = arr * b
+            elif op == 1:
+                # PIL blends toward the rounded mean of the L image; the
+                # float mean is the same up to that rounding
+                mean = (arr @ luma_w).mean()
+                arr = mean * (1.0 - c) + arr * c
+            elif op == 2:
+                l = (arr @ luma_w)[..., None]
+                arr = l * (1.0 - s) + arr * s
+            else:
+                # PIL adds int(h*255) to the uint8 hue (mod 256); here the
+                # same fraction of a turn
+                hh, ss, vv = _rgb_to_hsv_np(np.clip(arr, 0.0, 1.0))
+                hh = (hh + int(h * 255) / 255.0) % 1.0
+                arr = _hsv_to_rgb_np(hh, ss, vv)
+            arr = np.clip(arr, 0.0, 1.0)
+        return arr
+
+    return apply
+
+
 def _to_float(img: Image.Image) -> np.ndarray:
     return np.asarray(img, dtype=np.float32) / 255.0
 
@@ -108,11 +203,9 @@ class KITTIRawDataset:
                  img_ext: str = ".jpg", load_depth: Optional[bool] = None,
                  load_pose: bool = False, seed: int = 1,
                  native: bool = False, rt: bool = False):
-        if native:
-            warnings.warn("native_loader: the PyTorch port reads images with "
-                          "PIL (the C++ loader is not ported yet)",
-                          stacklevel=2)
         self.data_path = data_path
+        # the C++ loader, built at first use; raises where it cannot be
+        self.native = native_loader.get() if native else None
         self.filenames = list(filenames)
         self.height = height
         self.width = width
@@ -203,6 +296,12 @@ class KITTIRawDataset:
             for i, off in zip(self.frame_ids[1:], draws):
                 offsets[i] = int(off)
 
+        if self.native is not None and not self.rt:
+            sample = self._getitem_native(folder, frame_index, side, do_flip,
+                                          rng if do_aug else None)
+            if sample is not None:
+                return sample
+
         frames: Dict[int, Image.Image] = {}
         rel_poses: Dict[int, np.ndarray] = {}
         for i in self.frame_ids:
@@ -266,6 +365,68 @@ class KITTIRawDataset:
         if self.load_pose:
             sample["relative_pose"] = np.stack(
                 [rel_poses[i] for i in self.frame_ids[1:]], 0)
+        return sample
+
+    def _getitem_native(self, folder, frame_index, side, do_flip,
+                        aug_rng=None):
+        """The C++ loader's sample, or None for the PIL path (frame 0 or
+        both neighbours of a frame missing), where PIL raises its own
+        errors.
+
+        ``aug_rng`` non-None jitters the scale-0 frames for ``color_aug``:
+        it is the sample's generator at the position where the PIL path
+        draws its jitter, so both draw the same (b, c, s, h, order)."""
+        paths = []
+        for i in self.frame_ids:
+            p = self.image_path(folder, frame_index + i, side)
+            if not os.path.isfile(p):  # duplicate the adjacent frame
+                j = i - 1 if i > 0 else i + 1
+                p = self.image_path(folder, frame_index + j, side)
+                if i == 0 or not os.path.isfile(p):
+                    return None
+            paths.append(p)
+        # one call for every frame: frame 0's pyramid is slot 0 of each
+        # scale (the others' coarse scales are cheap and unused)
+        pyr = self.native.load_batch(paths, self.width, self.height,
+                                     self.num_pyramid_scales,
+                                     [do_flip] * len(paths))
+        scale0 = pyr[0]
+
+        if aug_rng is not None:
+            params, ops = draw_jitter_params(aug_rng)
+            jittered = self.native.jitter_batch(scale0.copy(), params, ops)
+            # blank frames stay blank (the jitter keeps 0 at 0 already)
+            color_aug = np.stack(
+                [f if f.sum() == 0 else j for f, j in zip(scale0, jittered)],
+                0)
+        else:
+            color_aug = scale0
+
+        K = K_NORM.copy()
+        K[0, :] *= self.width
+        K[1, :] *= self.height
+        sample = {
+            "color": scale0,
+            "color_aug": color_aug,
+            "K": K,
+            "inv_K": np.linalg.inv(K).astype(np.float32),
+        }
+        for s in range(1, self.num_pyramid_scales):
+            sample[f"color_pyr_{s}"] = pyr[s][0]
+        if self.load_depth:
+            sample["depth_gt"] = self.get_depth(folder, frame_index, side,
+                                                do_flip)
+        if self.load_pose:
+            seq = f"{int(folder):02d}"
+            poses = self._poses[seq]
+            rel = []
+            for i in self.frame_ids[1:]:
+                try:
+                    rel.append((np.linalg.inv(poses[frame_index + i])
+                                @ poses[frame_index]).astype(np.float32))
+                except IndexError:
+                    rel.append(np.eye(4, dtype=np.float32))
+            sample["relative_pose"] = np.stack(rel, 0)
         return sample
 
 

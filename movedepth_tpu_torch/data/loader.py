@@ -3,8 +3,8 @@
 
 ``ShardedIndexSampler`` shuffles per epoch from (seed, epoch), shards with
 ``indices[rank::world]`` and drops the last partial batch when asked;
-``Loader`` decodes samples on a thread pool (PIL and numpy release the
-GIL) and keeps a bounded queue of collated numpy batches, so the same
+``Loader`` decodes samples on a thread pool (PIL, numpy and the C++
+loader's calls release the GIL) and keeps a bounded queue of collated numpy batches, so the same
 dataset and seed give the JAX package's batches. Unlike the JAX package's
 loader, a sample that fails to load raises in the consumer instead of
 leaving it waiting.

@@ -10,6 +10,13 @@ at once, one nvcc process each. A source listed in ``UNITS`` is compiled
 once per entry, each time with that entry's ``-D`` flags, as separate
 translation units that nvcc builds in parallel, then linked into one
 library.
+
+The host data loader, ``csrc/loader.cpp``, is plain C++ and is built the
+same way with the host compiler (``$CXX``, else ``g++``) by
+:func:`build_loader`, in one of two routes: ``"a"`` decodes with libjpeg
+and libpng, ``"b"`` (``-DMD_NO_CODECS``) leaves the decode to the caller,
+for a host without their headers. :func:`loader_route` picks the route the
+host supports.
 """
 
 from __future__ import annotations
@@ -29,12 +36,21 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "movedepth_tpu_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the JAX package's native/Makefile flags, so that on one host the port's
+# loader and the JAX package's give the same bytes
+LOADER_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
+                "-shared")
+# route -> (its -D flags, its libraries)
+LOADER_ROUTES = {"a": ((), ("-ljpeg", "-lpng")),
+                 "b": (("-DMD_NO_CODECS",), ())}
+
 # name -> the -D flags of each translation unit of csrc/<name>.cu: the
 # warp-correlate kernel's (C, G) instantiations, one unit per C beside the
 # unit of its C interface
 UNITS = {"sweep_warp_corr": [[]] + [[f"-DSWC_C={c}"] for c in (8, 16, 32, 64)]}
 
 _libs: dict = {}
+_routes: dict = {}  # compiler -> the loader route it supports
 # name -> (build seconds, nvcc's -Xptxas -v report) for builds in this process
 build_reports: dict = {}
 
@@ -170,3 +186,70 @@ def ptxas_report(name: str) -> list:
             for row, demangled in zip(rows, names):
                 row[0] = demangled
     return [tuple(r) for r in rows]
+
+
+def cxx() -> str:
+    return os.environ.get("CXX") or "g++"
+
+
+def loader_route() -> str:
+    """``"a"`` where the host compiler finds ``jpeglib.h`` and ``png.h``,
+    else ``"b"`` (asked once per compiler in a process)."""
+    if cxx() not in _routes:
+        _routes[cxx()] = _probe_codecs()
+    return _routes[cxx()]
+
+
+def _probe_codecs() -> str:
+    probe = "#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n"
+    try:
+        proc = subprocess.run([cxx(), "-x", "c++", "-E", "-", "-o",
+                               os.devnull], input=probe, capture_output=True,
+                              text=True, timeout=60)
+    except OSError:  # no compiler: building either route will say so
+        return "b"
+    return "a" if proc.returncode == 0 else "b"
+
+
+def loader_path(route: str) -> Path:
+    """Where ``csrc/loader.cpp`` builds to in ``route`` under the current
+    source, flags and compiler."""
+    key = (CSRC / "loader.cpp").read_bytes()
+    defines, libs = LOADER_ROUTES[route]
+    key += " ".join((cxx(), *LOADER_FLAGS, *defines, *libs)).encode()
+    return BUILD_DIR / (f"loader-{route}-"
+                        f"{hashlib.sha256(key).hexdigest()[:16]}.so")
+
+
+def build_loader(route: str) -> Path:
+    """Compile ``csrc/loader.cpp`` in ``route`` if its library is missing
+    and return the library's path; the seconds a build took go to
+    ``build_reports["loader-<route>"]``. A build writes a temporary file
+    and renames it, so processes racing on the first use are safe. Raises
+    ``RuntimeError`` with the compiler's output if it fails."""
+    out = loader_path(route)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    defines, libs = LOADER_ROUTES[route]
+    cmd = [cxx(), *LOADER_FLAGS, *defines, "-o", tmp,
+           str(CSRC / "loader.cpp"), *libs]
+    t0 = time.perf_counter()
+    try:
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600)
+        except OSError as e:
+            raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:"
+                               f"\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_reports[f"loader-{route}"] = (time.perf_counter() - t0,
+                                        proc.stderr)
+    return out

@@ -8,7 +8,8 @@ one seeded with ``cfg.seed`` (``build_models``), the masked-augmentation
 boxes and automask noise of every train and validation forward from one on
 the device seeded with ``cfg.seed + 1`` (``pipeline.sample_draws``). The
 data loader draws its own augmentation from (seed, epoch, index), as the
-JAX package's does.
+JAX package's does, and reads the images with the C++ loader unless
+``native_loader`` is off (the trainer says which at start-up).
 
 Checkpoints are reference ``.pth`` folders plus ``adam.pth``
 (train/checkpoints.py), saved every ``save_frequency`` epochs and always as
@@ -103,7 +104,15 @@ class Trainer:
         self.val_dataset = dataset_cls(
             cfg.data_path, val_files, cfg.height, cfg.width, cfg.frame_ids,
             is_train=False, img_ext=img_ext, load_pose=cfg.load_pose,
-            seed=cfg.seed)
+            seed=cfg.seed, native=cfg.native_loader)
+        native = self.train_dataset.native
+        if native is None:
+            print("data: PIL loader (--no-native_loader)", flush=True)
+        else:
+            built = ("already built" if native.build_s is None
+                     else f"built in {native.build_s:.1f} s")
+            print(f"data: {native.describe()}; csrc/loader.cpp {built}",
+                  flush=True)
         self.train_loader = Loader(
             self.train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
             num_workers=cfg.num_workers, seed=cfg.seed)
@@ -236,12 +245,18 @@ class Trainer:
                 self.validate(use_z, step)
             if cfg.save_intermediate_models and step % 2000 == 0:
                 self.save(epoch=self.epoch, snapshot_step=step)
+            if n == 1:
+                t_first = time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         if n:
-            ms = (time.perf_counter() - t_epoch) * 1e3 / n
-            print(f"epoch {self.epoch}: {n} steps, {ms:.1f} ms/step wall "
-                  "(data loading, logging and validation included)",
+            t_end = time.perf_counter()
+            ms = (t_end - t_epoch) * 1e3 / n
+            # a process's first step also autotunes cuDNN
+            warm = (f", {(t_end - t_first) * 1e3 / (n - 1):.1f} after the "
+                    "first" if n > 1 else "")
+            print(f"epoch {self.epoch}: {n} steps, {ms:.1f} ms/step wall"
+                  f"{warm} (data loading, logging and validation included)",
                   flush=True)
 
     @torch.no_grad()

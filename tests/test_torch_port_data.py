@@ -1,8 +1,10 @@
 """The port's data path against the JAX package's, on the CPU: KITTI
 dataset items and loader batches on the same tree with the same seed
-(train with augmentation and flips, val), the nearest-neighbour depth-map
-resize and the during-training Garg metrics written without OpenCV against
-the JAX package's OpenCV versions."""
+(train with augmentation and flips, val), on the PIL path and on the C++
+loader's path (``native=True``, against the JAX package's C++ loader built
+on the same host: bit for bit), the nearest-neighbour depth-map resize
+and the during-training Garg metrics written without OpenCV against the
+JAX package's OpenCV versions."""
 
 import cv2
 import numpy as np
@@ -10,6 +12,7 @@ import pytest
 from PIL import Image
 
 from movedepth_tpu.data import kitti as JK
+from movedepth_tpu.data import native_loader as JNL
 from movedepth_tpu.data.loader import Loader as JaxLoader
 from movedepth_tpu.train.trainer import (
     garg_depth_metrics as jax_garg_depth_metrics,
@@ -37,12 +40,26 @@ def tree(tmp_path_factory):
     return str(root)
 
 
-def _datasets(tree, is_train, lines):
+def _datasets(tree, is_train, lines, native=False, **extra):
     files = [f"{DRIVE} {i} l" for i in lines]
     kw = dict(height=32, width=64, frame_ids=(0, -1, 1), is_train=is_train,
-              seed=SEED)
-    return (K.KITTIRawDataset(tree, files, **kw),
-            JK.KITTIRawDataset(tree, files, native=False, **kw))
+              seed=SEED, **extra)
+    return (K.KITTIRawDataset(tree, files, native=native, **kw),
+            JK.KITTIRawDataset(tree, files, native=native, **kw))
+
+
+@pytest.fixture(scope="module")
+def jax_native():
+    if not JNL.available():
+        pytest.skip("the JAX package's native/loader.cpp does not build here "
+                    "(make, g++, libjpeg or libpng missing)")
+
+
+def _native_datasets(tree, is_train, lines, **extra):
+    port, jax_ds = _datasets(tree, is_train, lines, native=True, **extra)
+    assert port.native is not None
+    assert jax_ds.native  # the JAX package's loader, not its PIL fallback
+    return port, jax_ds
 
 
 def _assert_same(got, want):
@@ -74,6 +91,76 @@ def test_loader_batches_match_jax(tree):
     got_loader = Loader(port, 2, num_workers=2, seed=SEED)
     want_loader = JaxLoader(jax_ds, 2, num_workers=2, seed=SEED)
     assert len(got_loader) == len(want_loader) == 2
+    for epoch in (0, 1):
+        got = list(got_loader.epoch(epoch))
+        want = list(want_loader.epoch(epoch))
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            _assert_same(g, w)
+
+
+@pytest.mark.parametrize("is_train", [True, False])
+def test_native_dataset_items_match_jax(tree, jax_native, is_train):
+    """Lines 0 and 7 miss a neighbour (frames -1 and 8): duplicated."""
+    port, jax_ds = _native_datasets(tree, is_train, range(8))
+    flips = augs = 0
+    for epoch in (0, 1):
+        port.set_epoch(epoch)
+        jax_ds.set_epoch(epoch)
+        for i in range(len(port)):
+            got = port[i]
+            _assert_same(got, jax_ds[i])
+            rng = port._rng(i)
+            aug, flip = rng.random() > 0.5, rng.random() > 0.5
+            augs += aug and is_train
+            flips += flip and is_train
+            if i in (0, 7):  # frame -1 or +1 is frame 0 again
+                np.testing.assert_array_equal(got["color"][1 if i == 0 else 2],
+                                              got["color"][0])
+    if is_train:
+        assert augs and flips
+
+
+def test_native_items_near_the_pil_items(tree, jax_native):
+    """The C++ path against the PIL path on the same draws: float Lanczos
+    and float jitter against PIL's uint8 rounding."""
+    native_ds, _ = _native_datasets(tree, True, range(1, 7))
+    pil_ds, _ = _datasets(tree, True, range(1, 7))
+    jittered = 0
+    for epoch in (0, 1):
+        native_ds.set_epoch(epoch)
+        pil_ds.set_epoch(epoch)
+        for i in range(len(native_ds)):
+            a, b = native_ds[i], pil_ds[i]
+            assert np.abs(a["color"] - b["color"]).max() < 0.06
+            if not np.array_equal(a["color"], a["color_aug"]):
+                jittered += 1
+                diff = np.abs(a["color_aug"] - b["color_aug"])
+                assert diff.max() < 0.08 and diff.mean() < 0.01
+    assert jittered
+
+
+def test_native_dataset_robust_train_reads_with_pil(tree, jax_native):
+    port, jax_ds = _native_datasets(tree, True, range(3, 5), rt=True)
+    pil, _ = _datasets(tree, True, range(3, 5), rt=True)
+    for i in range(len(port)):
+        got = port[i]
+        _assert_same(got, jax_ds[i])
+        _assert_same(got, pil[i])
+
+
+def test_native_dataset_missing_frame_raises_from_pil(tree, jax_native):
+    """Frame 0 missing: the PIL path's own error, in both packages."""
+    port, jax_ds = _native_datasets(tree, False, [99])
+    for ds in (port, jax_ds):
+        with pytest.raises(FileNotFoundError):
+            ds[0]
+
+
+def test_native_loader_batches_match_jax(tree, jax_native):
+    port, jax_ds = _native_datasets(tree, True, range(8))
+    got_loader = Loader(port, 3, num_workers=3, seed=SEED)
+    want_loader = JaxLoader(jax_ds, 3, num_workers=3, seed=SEED)
     for epoch in (0, 1):
         got = list(got_loader.epoch(epoch))
         want = list(want_loader.epoch(epoch))

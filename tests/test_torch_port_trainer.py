@@ -1,8 +1,9 @@
 """The port's trainer and train CLI on the CPU, on a tiny KITTI-layout tree
 (64x96, batch 2, 8 bins): epochs, checkpoints in the reference layout, the
 step-derived resume, the mono warm start with its BatchNorm statistics,
-ImageNet init from a torchvision-layout ``.pth``, and the CLI. The same
-checks as tests/test_trainer.py makes of the JAX package's trainer."""
+ImageNet init from a torchvision-layout ``.pth``, the data loader the
+trainer picks from ``native_loader``, and the CLI. The same checks as
+tests/test_trainer.py makes of the JAX package's trainer."""
 
 import json
 import os
@@ -17,6 +18,7 @@ from PIL import Image
 from movedepth_tpu_torch import Config
 from movedepth_tpu_torch import weights as W
 from movedepth_tpu_torch.cli import train as cli_train
+from movedepth_tpu_torch.data import native_loader as NL
 from movedepth_tpu_torch.models import ResNetEncoder, build_models
 from movedepth_tpu_torch.train import state as S
 from movedepth_tpu_torch.train.logging import MetricsLogger
@@ -252,6 +254,27 @@ def test_trainer_refuses_what_is_not_ported(kitti_tree):
             Trainer(make_cfg(root), split_dir=splits)
 
 
+@pytest.mark.parametrize("native_loader", [True, False])
+def test_trainer_datasets_follow_native_loader(kitti_tree, capsys,
+                                               native_loader):
+    """Train and val datasets both read with the C++ loader unless
+    native_loader is off, and the trainer says which at start-up."""
+    root, splits = kitti_tree
+    trainer = Trainer(make_cfg(root, native_loader=native_loader,
+                               model_name=f"t_native_{native_loader}"),
+                      split_dir=splits, device="cpu")
+    out = capsys.readouterr().out
+    if native_loader:
+        loader = NL.get()
+        assert trainer.train_dataset.native is loader
+        assert trainer.val_dataset.native is loader
+        assert f"data: native loader, route {loader.route} (" in out
+    else:
+        assert trainer.train_dataset.native is None
+        assert trainer.val_dataset.native is None
+        assert "data: PIL loader (--no-native_loader)" in out
+
+
 def test_cli_train_one_epoch(kitti_tree, capsys):
     root, _ = kitti_tree
     trainer = cli_train.main([
@@ -265,6 +288,7 @@ def test_cli_train_one_epoch(kitti_tree, capsys):
     assert trainer.step == 2 and trainer.cfg.kernel_l1
     out = capsys.readouterr().out
     assert "epoch 0: 2 steps" in out
+    assert "data: native loader, route " in out  # the default
     launches = json.loads(out.split("kernel launches: ")[1].splitlines()[0])
     assert launches and set(launches.values()) == {0}  # CPU: plain versions
     assert os.path.isdir(os.path.join(_models_dir(root, "t_cli"), "last"))
