@@ -77,6 +77,21 @@ without printing the final ok line:
    loader: wall ms/step of each epoch against phase 9b's train_step.
 11. the stage ablations of the sweep kernel at batch 128 (``full`` bit for
    bit the shipped kernel), and the public wrapper against the bare launch.
+12. data-parallel training, this slice's path. 12a: ``torchrun --standalone
+   --nproc_per_node 1 -m movedepth_tpu_torch.cli.train`` (nccl) at 640x192,
+   batch 12, bfloat16, --kernel_l1 on phase 10's tree, one epoch of 2 steps
+   with validation and checkpoints: its ``dist:`` line, the launches of
+   rows 2, 3 and 4b, weights_0 and last once each, its wall ms/step after
+   the first step beside phase 10's. 12b: two ranks sharing the card over
+   gloo (child processes, ``chip_smoke.py --ddp-rank R DIR``), float32 at
+   640x192, 2 rows a rank, one train_step against one process's card step
+   at batch 4 from the same weights, batch and draws: the losses within the
+   train parity gates, each parameter's Adam update under the per-leaf rule
+   of tests/test_sharding.py, the ranks' parameters identical, rows 2-5
+   launched in each rank; each rank's step and gradient all-reduce times.
+   12c: in this process, a world-1 nccl group: the bfloat16 batch-12
+   train_step with the group (SyncBatchNorm, global masked means, gradient
+   all-reduce) and without it, in turns, and the gradient all-reduce alone.
 
 Kernel times (``ms``) are device times: many bare launches (the typed C
 function on preallocated outputs, no checks, no allocation) back to back
@@ -1653,15 +1668,20 @@ def _write_eval_tree(root, lines=EVAL_LINES):
     return splits
 
 
-def _train_cli(args, timeout):
+def _train_cli(args, timeout, torchrun=False):
     """Run ``python -m movedepth_tpu_torch.cli.train`` with ``args`` from
-    the checkout; returns (its output lines, {epoch: (steps, wall ms/step,
-    wall ms/step after the first step or None)}, its kernel launches)."""
+    the checkout (``torchrun``: under ``torch.distributed.run --standalone
+    --nproc_per_node 1``); returns (its output lines, {epoch: (steps, wall
+    ms/step, wall ms/step after the first step or None)}, its kernel
+    launches)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    launcher = (["-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "1"] if torchrun else [])
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "movedepth_tpu_torch.cli.train", *args],
+        [sys.executable, *launcher, "-m", "movedepth_tpu_torch.cli.train",
+         *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
     lines = proc.stdout.splitlines()
     for line in lines:
@@ -1701,8 +1721,8 @@ def phase_train_cli(l1_ms, card):
     """The train CLI as a user runs it, at the shipped width (640x192,
     batch 12, bfloat16) with --kernel_l1 and the default native loader, 2
     epochs of 2 steps with validation at every step and checkpoints, then
-    a resume from ``last`` for a third epoch. Returns the first run's
-    kernel launches."""
+    a resume from ``last`` for a third epoch. Returns (the first run's
+    kernel launches, its {epoch: wall ms/step after the first step})."""
     from movedepth_tpu_torch.config import ALL_MODELS
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1749,7 +1769,7 @@ def phase_train_cli(l1_ms, card):
              sorted({**epochs, **epochs2}.items())}
     log(f"[cli] trainer wall ms/step by epoch {walls} against train_step "
         f"with kernel_l1 {l1_ms:.3f} ms/step (phase 9b); {card}")
-    return launches
+    return launches, {e: warm for e, (_, _, warm) in epochs.items()}
 
 
 LOADER_LINES = 240  # phase 10a's train lines: 20 batches of 12
@@ -1932,9 +1952,332 @@ def phase_variants():
     return rec
 
 
+# ------------------------------------------------------------------ phase 12
+
+DDP_WORLD = 2  # phase 12b's ranks, sharing the one card over gloo
+DDP_ROWS = 2  # each 12b rank's rows; the one-process step takes 4
+DDP_TIMEOUT = 300  # seconds a 12b rank may take
+LOOSE = ("loss/", "mono_loss", "loss")  # the losses gated at 1e-3
+
+
+def phase_ddp_cli(warm10, card):
+    """Phase 12a: the train CLI as a user starts it on one card under
+    torchrun (nccl, world 1), at the shipped width (640x192, ResNet18, 16
+    bins, bfloat16, batch 12) with --kernel_l1, on phase 10's tree, one
+    epoch of 2 steps with validation at every step. Returns its kernel
+    launches."""
+    from movedepth_tpu_torch.config import ALL_MODELS
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "kitti")
+        splits = _write_kitti_tree(data)
+        log_dir = os.path.join(tmp, "log")
+        lines, epochs, launches = _train_cli(
+            ["--data_path", data, "--log_dir", log_dir, "--model_name",
+             "ddp", "--split", "smoke", "--splits_dir", splits,
+             "--kernel_l1", "--weights_init", "scratch", "--log_frequency",
+             "1", "--num_workers", "8", "--num_epochs", "1"], 480,
+            torchrun=True)
+        said = [ln for ln in lines if ln.startswith("dist: ")]
+        if said != ["dist: backend nccl, rank 0 of 1, device cuda:0"]:
+            raise RuntimeError(f"12a: expected one nccl rank 0 of 1: {said}")
+        models_dir = os.path.join(log_dir, "ddp", "models")
+        found = sorted(os.listdir(models_dir))
+        if found != ["last", "opt.json", "weights_0"]:
+            raise RuntimeError(f"12a: checkpoints {found}")
+        step = _check_folders(models_dir, ("weights_0", "last"), ALL_MODELS)
+    rows = ("sweep_warp", "sweep_warp_bwd", "warp_images_border_l1",
+            "warp_images_border_l1_coord_bwd")
+    log(f"[ddp-cli] torchrun, 1 process: {said[0]}; epochs {epochs}; step "
+        f"{step}; kernel launches {launches}")
+    if step != 2 or {e: n for e, (n, _, _) in epochs.items()} != {0: 2}:
+        raise RuntimeError("12a: expected one epoch of 2 steps")
+    if not all(launches[k] for k in rows):
+        raise RuntimeError(f"12a: rows 2, 3 and 4b must launch: {launches}")
+    log(f"[ddp-cli] wall ms/step after the first step: torchrun (nccl, "
+        f"SyncBatchNorm, gradient all-reduce) {epochs[0][2]:.1f}, phase 10 "
+        f"(one process, no group) {warm10[0]:.1f} in epoch 0 and "
+        f"{warm10[1]:.1f} in epoch 1; {card}")
+    return launches
+
+
+def _ddp_rank(rank, workdir):
+    """A rank of phase 12b (a child process): one float32 train_step of
+    DDP_ROWS rows of the spec's batch with synchronized BatchNorm, global
+    masked means and the gradient all-reduce over gloo on the shared card;
+    then 3 more steps and 3 gradient all-reduces, each timed alone."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import build_models
+    from movedepth_tpu_torch.parallel import dist as D
+    from movedepth_tpu_torch.parallel.sync_bn import convert_sync_batchnorm
+    from movedepth_tpu_torch.train import state as S
+
+    phase_device()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DDP_WORLD),
+                      LOCAL_RANK="0")
+    D.initialize_distributed(
+        "cuda", backend="gloo",
+        init_method=f"file://{os.path.join(workdir, 'rendezvous')}")
+    group = D.default_group()
+    spec = torch.load(os.path.join(workdir, "spec.pt"), weights_only=False)
+    cfg = Config(compute_dtype="float32")
+    models = build_models(cfg, "cuda")
+    for name, m in models.items():
+        m.load_state_dict(spec["states"][name])
+    convert_sync_batchnorm(models, group)
+    D.broadcast_models(models, group)
+    rows = slice(rank * DDP_ROWS, (rank + 1) * DDP_ROWS)
+    batch = P.as_batch({k: v[rows] for k, v in spec["batch"].items()},
+                       "cuda")
+    draws = P.sample_draws(cfg, DDP_ROWS, torch.Generator("cuda").manual_seed(
+        spec["seed"]), "cuda", rank, DDP_WORLD)
+    opt, sched = S.create_optimizer(models, cfg)
+    _zero_launch_counts()
+    losses, _ = S.train_step(models, opt, sched, batch, cfg, False, draws,
+                             group)
+    torch.cuda.synchronize()
+    out = {"launches": _launch_counts(),
+           "losses": {k: v.item() for k, v in losses.items()},
+           "state": {n: {k: v.to("cpu", copy=True)
+                         for k, v in m.state_dict().items()}
+                     for n, m in models.items()}}
+    if rank == 0:
+        out["grads"] = {n: {k: p.grad.to("cpu", copy=True) for k, p in
+                            m.named_parameters()} for n, m in models.items()}
+    step_s, reduce_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        S.train_step(models, opt, sched, batch, cfg, False, draws, group)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        D.all_reduce_grads(models, group)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+    out.update(step_ms=[t * 1e3 for t in step_s],
+               reduce_ms=[t * 1e3 for t in reduce_s])
+    torch.save(out, os.path.join(workdir, f"out{rank}.pt"))
+    D.barrier(group)
+    torch.distributed.destroy_process_group()
+
+
+def _run_ranks(workdir):
+    """Start the DDP_WORLD ranks of phase 12b and wait for them; a rank
+    that exits non-zero or outlives DDP_TIMEOUT fails the phase with every
+    rank's stderr."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+         workdir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(DDP_WORLD)]
+    deadline = time.monotonic() + DDP_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        errs = [p.communicate()[1] for p in procs]
+        raise RuntimeError(f"12b: a rank outlived {DDP_TIMEOUT} s:\n"
+                           + "\n".join(e[-3000:] for e in errs))
+    for r, (p, (stdout, err)) in enumerate(zip(procs, outs)):
+        for line in stdout.splitlines():
+            log(f"[ddp-ranks]   rank {r}: {line}")
+        if p.returncode != 0:
+            raise RuntimeError(f"12b: rank {r} exited {p.returncode}:\n"
+                               + err[-6000:])
+
+
+def _delta_rule(got, want):
+    """tests/test_sharding.py's per-leaf rule for two Adam updates of one
+    parameter: at most max(8, 2%) of the elements off by more than 2e-5 +
+    5% of the reference, and a relative L2 distance of at most max(0.2,
+    6/sqrt(size)). Returns (ok, elements off, size, relative L2)."""
+    got, want = got.double(), want.double()
+    bad = int(((got - want).abs() > 2e-5 + 0.05 * want.abs()).sum())
+    rel = float((got - want).norm() / (want.norm() + 1e-12))
+    size = want.numel()
+    return (bad <= max(8, int(0.02 * size))
+            and rel <= max(0.2, 6.0 / math.sqrt(size)), bad, size, rel)
+
+
+def phase_ddp_ranks(card):
+    """Phase 12b: two ranks on the one card (gloo; NCCL refuses two ranks
+    on one device), float32 at 640x192 with the shipped models, DDP_ROWS
+    rows a rank, one train_step against one process's card step at the
+    global batch from the same seeded weights, batch and draws. Returns
+    {kernel: [launches of rank 0, of rank 1]}."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import build_models
+    from movedepth_tpu_torch.train import state as S
+
+    cfg = Config(compute_dtype="float32")
+    models = build_models(cfg, "cpu", torch.Generator().manual_seed(0))
+    _boost_pose_head(models)
+    states = {n: {k: v.clone() for k, v in m.state_dict().items()}
+              for n, m in models.items()}
+    batch = P.synthetic_batch(cfg, DDP_WORLD * DDP_ROWS, seed=0,
+                              device="cpu")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"states": states, "seed": 0,
+                    "batch": {k: v.numpy() for k, v in batch.items()}},
+                   os.path.join(tmp, "spec.pt"))
+        _run_ranks(tmp)
+        ranks = [torch.load(os.path.join(tmp, f"out{r}.pt"),
+                            weights_only=False) for r in range(DDP_WORLD)]
+    log(f"[ddp-ranks] {DDP_WORLD} ranks over gloo on one card: "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+
+    ref = {k: m.cuda() for k, m in models.items()}
+    opt, sched = S.create_optimizer(ref, cfg)
+    draws = P.sample_draws(cfg, DDP_WORLD * DDP_ROWS,
+                           torch.Generator("cuda").manual_seed(0), "cuda")
+    want, _ = S.train_step(ref, opt, sched, P.as_batch(batch, "cuda"), cfg,
+                           False, draws)
+    torch.cuda.synchronize()
+
+    failed = []
+    worst_loss = (0.0, None)
+    for key, value in want.items():
+        got = sum(r["losses"][key] for r in ranks) / DDP_WORLD
+        rtol = 1e-3 if key.startswith(LOOSE) else 2e-4
+        err = abs(got - value.item())
+        rel = err / abs(value.item())
+        worst_loss = max(worst_loss, (rel, key), key=lambda t: t[0])
+        if not err <= 2e-6 + rtol * abs(value.item()):
+            failed.append(f"{key}: ranks {got:.6f}, one process "
+                          f"{value.item():.6f}")
+    same = max(float((a - ranks[1]["state"][n][k]).abs().max())
+               if a.is_floating_point() else
+               float((a != ranks[1]["state"][n][k]).sum())
+               for n, sd in ranks[0]["state"].items() for k, a in sd.items())
+    if same != 0:
+        failed.append(f"the ranks' parameters differ by up to {same}")
+    worst = (0.0, None)
+    off = []
+    for name, m in ref.items():
+        for k, p in m.named_parameters():
+            ok, bad, size, rel = _delta_rule(
+                ranks[0]["state"][name][k] - states[name][k],
+                p.detach().cpu() - states[name][k])
+            worst = max(worst, (rel, f"{name}.{k} ({bad}/{size} off)"),
+                        key=lambda t: t[0])
+            if not ok:
+                off.append(f"{name}.{k}: {bad}/{size} off, rel {rel:.3f}")
+    failed += off
+    grads = {name: (sum(float((ranks[0]["grads"][name][k] - p.grad.cpu())
+                              .norm() ** 2) for k, p in
+                        m.named_parameters())
+                    / sum(float(p.grad.norm() ** 2)
+                          for p in m.parameters())) ** 0.5
+             for name, m in ref.items()}
+    launches = {k: [r["launches"][k] for r in ranks]
+                for k in ranks[0]["launches"]}
+    log(f"[ddp-ranks] float32 batch {DDP_ROWS} x {DDP_WORLD} ranks vs one "
+        f"process at batch {DDP_WORLD * DDP_ROWS}: worst loss rel "
+        f"{worst_loss[0]:.3e} ({worst_loss[1]}); worst Adam update rel L2 "
+        f"{worst[0]:.3e} at {worst[1]}; gradient rel L2 by model "
+        + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
+        + f"; the ranks' parameters and statistics differ by {same}")
+    log(f"[ddp-ranks] kernel launches of the step, rank 0 and 1: {launches}")
+    for r, res in enumerate(ranks):
+        log(f"[ddp-ranks] rank {r}: train_step "
+            + ", ".join(f"{t:.1f}" for t in res["step_ms"])
+            + " ms, gradient all-reduce alone "
+            + ", ".join(f"{t:.1f}" for t in res["reduce_ms"])
+            + f" ms (2 ranks on one card, gloo through the host); {card}")
+    rows = ("sweep_warp", "sweep_warp_bwd", "warp_images_border",
+            "warp_images_border_coord_bwd")
+    if not all(all(launches[k]) for k in rows):
+        failed.append(f"rows 2-5 must launch in each rank: {launches}")
+    if failed:
+        raise RuntimeError("12b gates failed: " + "; ".join(failed))
+    log("[ddp-ranks] gates pass: every loss within 2e-4 (1e-3 for loss/*, "
+        "mono_loss, loss), every Adam update under the per-leaf rule, the "
+        "ranks' parameters identical, rows 2-5 launched in each rank")
+    return launches
+
+
+def phase_ddp_overhead(cpu_models, card):
+    """Phase 12c: the data-parallel step at world 1 in this process (an
+    nccl group through a file:// rendezvous): the bfloat16 batch-12
+    train_step with the group (SyncBatchNorm, global masked means, the
+    gradient all-reduce) and without it, in turns (without, with, with,
+    without), 10 steps after 3 warmups each, and the gradient all-reduce
+    alone."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.parallel import dist as D
+    from movedepth_tpu_torch.parallel.sync_bn import (SyncBatchNorm,
+                                                      convert_sync_batchnorm)
+    from movedepth_tpu_torch.train import state as S
+
+    cfg = Config()
+    bsz = cfg.batch_size
+    batch = P.synthetic_batch(cfg, bsz, seed=1, device="cuda")
+    draws = P.sample_draws(cfg, bsz, torch.Generator("cuda").manual_seed(1),
+                           device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        try:
+            D.initialize_distributed(
+                "cuda", init_method=f"file://{os.path.join(tmp, 'rdzv')}")
+            group = D.default_group()
+            plain = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
+            synced = convert_sync_batchnorm(
+                {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()},
+                group)
+            bns = sum(isinstance(mod, SyncBatchNorm) for m in synced.values()
+                      for mod in m.modules())
+            times = {"without": [], "with": []}
+            for label in ("without", "with", "with", "without"):
+                models = synced if label == "with" else plain
+                opt, sched = S.create_optimizer(models, cfg)
+                g = group if label == "with" else None
+                _zero_launch_counts()
+                times[label].append(cuda_ms(
+                    lambda: S.train_step(models, opt, sched, batch, cfg,
+                                         True, draws, g), runs=10, warmup=3))
+                launches = _launch_counts()
+                if not launches["sweep_warp"]:
+                    raise RuntimeError(f"12c: no kernel launched {launches}")
+            reduce = cuda_ms(lambda: D.all_reduce_grads(synced, group),
+                             runs=10, warmup=3)
+            n = sum(p.numel() for m in synced.values()
+                    for p in m.parameters())
+        finally:
+            if D.is_distributed():
+                torch.distributed.destroy_process_group()
+            for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+                os.environ.pop(k, None)
+    with_ms = sum(times["with"]) / 2
+    without_ms = sum(times["without"]) / 2
+    log(f"[ddp-overhead] bfloat16 train_step batch {bsz}, 640x192, world 1 "
+        f"nccl, in turns: without the group {times['without']} ms, with it "
+        f"{times['with']} ms (median of 10 each); the gradient all-reduce "
+        f"alone ({n} float32 values, {4 * n / 2 ** 20:.1f} MiB) "
+        f"{reduce:.3f} ms, {100 * reduce / with_ms:.1f}% of the step; "
+        f"{bns} SyncBatchNorm modules; the step with the group costs "
+        f"{with_ms - without_ms:.3f} ms more; {card}")
+
+
+
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
+        return
+    if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of phase 12b
+        _ddp_rank(int(sys.argv[2]), sys.argv[3])
         return
     card = phase_device()
     phase_build()
@@ -1954,7 +2297,7 @@ def main():
         rec["launches"] = launches[rec["name"]]
     phase_train_path_l1(*phase8)
     l1_ms = phase_train_throughput(train_models, card)
-    cli_launches = phase_train_cli(l1_ms, card)
+    cli_launches, cli_warm = phase_train_cli(l1_ms, card)
     with tempfile.TemporaryDirectory() as tmp:
         splits = _write_loader_tree(tmp)
         phase_loader(tmp, card)
@@ -1962,6 +2305,14 @@ def main():
     for rec in l1_kernels:
         rec["launches"] = cli_launches[rec["name"]]
     variants = phase_variants()
+    ddp_cli = phase_ddp_cli(cli_warm, card)
+    ddp_ranks = phase_ddp_ranks(card)
+    phase_ddp_overhead(train_models, card)
+    for rec in train_kernels + l1_kernels:
+        if rec["name"] in ddp_cli:
+            rec["launches_12a"] = ddp_cli[rec["name"]]
+        if rec["name"] in ddp_ranks:
+            rec["launches_12b"] = ddp_ranks[rec["name"]]
     import torch
     log(card)
     log(json.dumps({"kernels": [kernel] + train_kernels + l1_kernels

@@ -6,22 +6,32 @@
 
 Every Config field is a flag, as in the JAX package's CLI. ``--device``
 (default ``cuda``) picks the device; ``cpu`` trains on the CPU with the
-kernels' plain versions. One process trains on one device: ``--multichip``
-with more than one card is refused (distributed training is ROADMAP Queue 1
-item 17). ``--profile_steps N`` writes a ``torch.profiler`` trace of steps
-[2, 2+N) to ``<log_dir>/<model_name>/profile/trace.json``. At the end the
-CLI prints one line with the kernel launches of the run.
+kernels' plain versions. Data-parallel training on N cards runs one
+process per card:
+
+  torchrun --nproc_per_node N -m movedepth_tpu_torch.cli.train ...
+
+Under torchrun (``WORLD_SIZE`` set) each process joins the process group
+(``nccl`` on cards, ``gloo`` with ``--device cpu``), trains on
+``cuda:LOCAL_RANK`` and prints ``dist: backend <b>, rank <r> of <w>,
+device <d>``; ``--batch_size`` is per process. Without torchrun one
+process trains on one device, and ``--multichip`` with more than one card
+is refused. ``--profile_steps N`` writes a ``torch.profiler`` trace of
+rank 0's steps [2, 2+N) to ``<log_dir>/<model_name>/profile/trace.json``.
+At the end each process prints one line with its kernel launches.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
 
 from movedepth_tpu_torch.cli.options import add_config_args, config_from_args
 from movedepth_tpu_torch.ops import image_warp, sweep_warp
+from movedepth_tpu_torch.parallel import dist as D
 from movedepth_tpu_torch.train.trainer import Trainer
 
 
@@ -43,26 +53,40 @@ def main(argv=None):
                         help="directory containing <split>/train_files.txt")
     parser.add_argument("--multichip", action=argparse.BooleanOptionalAction,
                         default=True,
-                        help="accepted for the JAX CLI's sake; more than "
-                             "one card is refused (no DDP yet)")
+                        help="train on every card: launch one process per "
+                             "card with torchrun (--batch_size is per "
+                             "process); without torchrun, more than one "
+                             "visible card is refused unless "
+                             "--no-multichip")
     parser.add_argument("--profile_steps", type=int, default=0,
                         help="write a torch.profiler trace of N early steps")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    if (args.multichip and args.device.startswith("cuda")
-            and torch.cuda.device_count() > 1):
-        raise SystemExit(
-            f"{torch.cuda.device_count()} CUDA devices: multi-card training "
-            "(DDP) is not ported yet (ROADMAP Queue 1 item 17); pass "
-            "--no-multichip to train on one card")
     split_dir = (f"{args.splits_dir}/{cfg.split}" if args.splits_dir
                  else None)
-    trainer = Trainer(cfg, split_dir=split_dir, device=args.device,
-                      profile_steps=args.profile_steps)
+    rank, world, device, group = 0, 1, args.device, None
+    if "WORLD_SIZE" in os.environ:  # under torchrun
+        rank, world, device = D.initialize_distributed(args.device)
+        group = D.default_group()
+        print(f"dist: backend {torch.distributed.get_backend(group)}, rank "
+              f"{rank} of {world}, device {device}", flush=True)
+    elif (args.multichip and args.device.startswith("cuda")
+            and torch.cuda.device_count() > 1):
+        cards = torch.cuda.device_count()
+        raise SystemExit(
+            f"{cards} CUDA devices: train on all of them with one process "
+            f"per card, `torchrun --nproc_per_node {cards} -m "
+            "movedepth_tpu_torch.cli.train ...`, or on one card with "
+            "--no-multichip")
+    trainer = Trainer(cfg, split_dir=split_dir, device=device,
+                      profile_steps=args.profile_steps, rank=rank,
+                      world_size=world, group=group)
     trainer.train()
     print("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    if group is not None:
+        torch.distributed.destroy_process_group()
     return trainer
 
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from movedepth_tpu_torch.parallel.dist import all_reduce_sum
+
 
 def entropy(volume, dim, keepdim=False):
     """Shannon entropy of a probability volume along ``dim``."""
@@ -82,6 +84,22 @@ def min_reprojection_with_automask(reproj_losses, identity_losses, noise):
     return reproj, (reproj <= ident).to(reproj.dtype)
 
 
-def masked_mean(x, mask, eps=1e-7):
-    """sum(x * mask) / (sum(mask) + eps)."""
-    return torch.sum(x * mask) / (torch.sum(mask) + eps)
+def masked_mean(x, mask, eps=1e-7, group=None):
+    """sum(x * mask) / (sum(mask) + eps).
+
+    With a process ``group``, both sums run over the global batch of every
+    rank (one all-reduce of the packed pair through ``all_reduce_sum``), so
+    every rank holds the value the JAX package computes on the global batch
+    under its mesh; a mean of per-rank ratios would differ whenever the
+    ranks' mask counts do. Gradient scale: every rank seeds the same global
+    value, and the all-reduce's backward sums the cotangents of all ranks,
+    so each rank's gradient is ``world`` times its share of the global
+    value's; ``parallel.dist.all_reduce_grads`` divides the sum of the
+    ranks' gradients by ``world`` and restores the gradient of the global
+    mean, as it does for the plain means, which each rank takes over its
+    own rows."""
+    if group is None:
+        return torch.sum(x * mask) / (torch.sum(mask) + eps)
+    sums = all_reduce_sum(torch.stack([torch.sum(x * mask), torch.sum(mask)]),
+                          group)
+    return sums[0] / (sums[1] + eps)

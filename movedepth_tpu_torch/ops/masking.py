@@ -9,10 +9,11 @@ from movedepth_tpu_torch.ops.geometry import pixel_grid
 from movedepth_tpu_torch.ops.image_warp import warp_images_border_reference
 
 
-def sample_box(height, width, filter_size, generator=None, device="cpu"):
+def sample_box(height, width, filter_size, generator=None, device="cuda"):
     """A box position (x0, y0), uniform in [0, W-fw) x [0, R-fh), drawn
-    from ``generator`` (torch's default one if None) on ``device``. The
-    JAX package draws it with ``jax.random``; tests inject its draw."""
+    from ``generator`` (torch's default one if None) on ``device``, the
+    card unless the caller asks for the CPU. The JAX package draws it with
+    ``jax.random``; tests inject its draw."""
     fh, fw = filter_size
     x0 = torch.randint(0, width - fw, (), generator=generator, device=device)
     y0 = torch.randint(0, height - fh, (), generator=generator, device=device)

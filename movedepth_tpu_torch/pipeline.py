@@ -245,20 +245,27 @@ def forward_mono_infer(models, batch, cfg: Config):
 # ------------------------------------------------------------------ training
 
 def sample_draws(cfg: Config, batch_size: int, generator=None,
-                 device="cuda"):
+                 device="cuda", rank: int = 0, world_size: int = 1):
     """The randomness of one training forward: the masked-augmentation box
     (x0, y0) and the automask tiebreak noise, one (B, H, W, 1) standard
     normal map per mono scale (none with ``disable_automasking``) and one
     more with ``mask_mvs_auto``, in the order ``forward_train`` uses them.
     ``generator`` (torch's default one if None) must live on ``device``,
-    the card unless the caller asks for the CPU."""
+    the card unless the caller asks for the CPU.
+
+    Data-parallel ranks seed their generators alike and draw for the
+    global batch of ``world_size * batch_size`` rows: one box for all, and
+    each rank keeps rows ``[rank * B, (rank + 1) * B)`` of the noise, so
+    the ranks together take the draws of one process at the global
+    batch."""
     h, w = cfg.height, cfg.width
     box = sample_box(h, w, (h // 3, w // 3), generator, device)
     n = (0 if cfg.disable_automasking else len(cfg.scales)) + int(
         cfg.mask_mvs_auto)
-    noise = torch.randn((n, batch_size, h, w, 1), generator=generator,
-                        device=device)
-    return {"box": box, "noise": list(noise)}
+    noise = torch.randn((n, world_size * batch_size, h, w, 1),
+                        generator=generator, device=device)
+    rows = slice(rank * batch_size, (rank + 1) * batch_size)
+    return {"box": box, "noise": list(noise[:, rows])}
 
 
 def predict_train_poses(models, batch, cfg: Config):
@@ -336,7 +343,7 @@ def _multi_warp(src, grid, target=None):
 
 
 def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
-                       cfg: Config, noise, mvs_mask=None):
+                       cfg: Config, noise, mvs_mask=None, group=None):
     """All reprojection losses, one multi-warp per source frame.
 
     The K = num_scales + 2 depth maps (mono scales, MVS, fused) are
@@ -346,7 +353,9 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
     card, the image-warp kernel's; on the CPU, its plain version) and SSIM
     still reads the warped stack; the losses are those of the torch tail.
     ``noise`` holds the automask tiebreaks in use order (``sample_draws``).
-    Returns (losses dict, {frame_id: warped scale-0 image}).
+    With a process ``group`` the masked means run over the global batch
+    (``ops.losses.masked_mean``). Returns (losses dict, {frame_id: warped
+    scale-0 image}).
     """
     color = batch["color"]
     target = color[:, 0]
@@ -413,7 +422,7 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
         else:
             reproj = torch.amin(reprojs, dim=-1, keepdim=True)
             mask = torch.ones_like(reproj)
-        rl = masked_mean(reproj, mask)
+        rl = masked_mean(reproj, mask, group=group)
         disp = disps[("disp", sc)][..., None]
         color_s = target if sc == 0 else batch[f"color_pyr_{sc}"]
         mean_disp = torch.mean(disp, dim=(1, 2), keepdim=True)
@@ -428,7 +437,7 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
     # MVS automask is overwritten with ones, so it is not computed)
     reproj = torch.amin(torch.cat(mvs_reproj, dim=-1), dim=-1, keepdim=True)
     mask = torch.ones_like(reproj) if mvs_mask is None else mvs_mask
-    losses["mvs_reproj_loss"] = masked_mean(reproj, mask)
+    losses["mvs_reproj_loss"] = masked_mean(reproj, mask, group=group)
     mvs_total = losses["mvs_reproj_loss"]
     if cfg.mvs_smooth_loss:
         d = depth_mvs_full[..., None]
@@ -449,7 +458,8 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
     else:
         reproj = torch.amin(fuse_stack, dim=-1, keepdim=True)
         mask = torch.ones_like(reproj)
-    losses["fuse_reproj_loss"] = masked_mean(reproj, mask)
+    losses["fuse_reproj_loss"] = masked_mean(reproj, mask,
+                                              group=group)
     return losses, warped_log
 
 
@@ -478,7 +488,8 @@ def compute_mvs_masks(cost_prob, disp0, batch, cam_T_cam, depth_mvs_full,
     return mask
 
 
-def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws):
+def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws,
+                  group=None):
     """The training forward: every model, both cost-volume passes and all
     losses, with the JAX package's stop-gradients (the relative poses, the
     detached pose of the MVS and fused warps, the depth prior, both inputs
@@ -487,8 +498,11 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws):
     The models' mode (train or eval) is the caller's; ``draws`` comes from
     :func:`sample_draws`. The three FPN calls (reference, source, masked
     reference) stay separate: in training each normalizes with its own
-    batch statistics. Returns (total loss, losses dict, outputs dict); the
-    losses dict has the JAX package's keys.
+    batch statistics. With a process ``group`` (data-parallel training:
+    ``batch`` and ``draws`` hold this rank's rows) the masked means run
+    over the global batch; the BatchNorms do where the models carry
+    ``parallel.sync_bn.SyncBatchNorm``. Returns (total loss, losses dict,
+    outputs dict); the losses dict has the JAX package's keys.
     """
     color_aug = batch["color_aug"]
     h, w = cfg.height, cfg.width
@@ -528,7 +542,8 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws):
     diff = torch.abs(depth_mvs_aug - depth_mvs)
     sl1 = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
     # the reference weights the masked loss by mask_lw twice
-    masked_loss = masked_mean(sl1, low_mask) * cfg.mask_lw ** 2
+    masked_loss = (masked_mean(sl1, low_mask, group=group)
+                   * cfg.mask_lw ** 2)
 
     if cfg.convex_up:
         with _models_ctx(cfg, dev):
@@ -549,7 +564,7 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws):
                                  depth_mvs_full, cfg)
     losses, warped_log = photometric_losses(
         disps, depth_mvs_full, fused, batch, cam_T_cam, cfg, draws["noise"],
-        mvs_mask=mvs_mask)
+        mvs_mask=mvs_mask, group=group)
     losses["masked_loss"] = masked_loss
     total = (losses["mono_loss"] + losses["masked_loss"]
              + losses["mvs_loss"] + losses["fuse_reproj_loss"])

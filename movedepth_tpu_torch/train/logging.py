@@ -1,7 +1,8 @@
 """Training observability of the port (a copy of
 ``movedepth_tpu/train/logging.py``): tensorboard scalars and image panels,
-the terminal line with examples/s and ETA, for the one training process
-of the port. Without tensorboardX the scalars go to
+the terminal line with examples/s and ETA, written by rank 0 alone (any
+other data-parallel rank opens no writer and prints nothing). Without
+tensorboardX the scalars go to
 ``<log>/metrics.jsonl``. Tensors are read with ``.detach().float().cpu()``.
 Disparity panels use the port's own plasma table (``ops/colormap.py``), so
 no matplotlib is needed.
@@ -34,15 +35,18 @@ def sec_to_hm_str(t: float) -> str:
 
 
 class MetricsLogger:
-    """Tensorboard (train/val writers) + terminal logger."""
+    """Tensorboard (train/val writers) + terminal logger, rank 0 only."""
 
-    def __init__(self, log_path: str, batch_size: int = 12,
+    def __init__(self, log_path: str, rank: int = 0, batch_size: int = 12,
                  num_total_steps: int = 1):
+        self.rank = rank
         self.batch_size = batch_size
         self.num_total_steps = max(1, num_total_steps)
         self.start_time = time.time()
         self.writers: Dict[str, object] = {}
         self._jsonl = None
+        if rank != 0:
+            return
         os.makedirs(log_path, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter
@@ -56,6 +60,8 @@ class MetricsLogger:
     def log_time(self, epoch: int, batch_idx: int, step: int,
                  duration: float, loss: float):
         """examples/s and the time left."""
+        if self.rank != 0:
+            return
         sps = self.batch_size / max(duration, 1e-9)
         elapsed = time.time() - self.start_time
         left = ((self.num_total_steps / max(step, 1) - 1.0) * elapsed

@@ -18,6 +18,7 @@ from typing import Dict
 import torch
 
 from movedepth_tpu_torch.config import Config
+from movedepth_tpu_torch.parallel.dist import all_reduce_grads
 from movedepth_tpu_torch.pipeline import forward_train
 
 # the models updated at learning_rate * lr_fac (the JAX package's MVS_GROUP)
@@ -68,11 +69,15 @@ def _detached(tree):
 
 
 def train_step(models, optimizer, schedule, batch, cfg: Config,
-               use_z_bins: bool, draws):
+               use_z_bins: bool, draws, group=None):
     """One optimizer step: the models in train mode, ``forward_train``,
     ``backward()``, Adam, the schedule. The gradients of this step stay in
-    each parameter's ``.grad`` until the next step. Returns (the losses
-    dict, the outputs dict), detached."""
+    each parameter's ``.grad`` until the next step. With a process
+    ``group`` (data-parallel training: ``batch`` and ``draws`` hold this
+    rank's rows) the masked means cover the global batch and the gradients
+    are averaged over the ranks before Adam, so every rank takes the step
+    of one process at the global batch. Returns (the losses dict, the
+    outputs dict), detached."""
     if cfg.steps_per_dispatch > 1:
         raise NotImplementedError(
             "steps_per_dispatch > 1 (the JAX package's multi-step scan) is "
@@ -81,8 +86,10 @@ def train_step(models, optimizer, schedule, batch, cfg: Config,
         m.train()
     optimizer.zero_grad(set_to_none=True)
     total, losses, outputs = forward_train(models, batch, cfg, use_z_bins,
-                                           draws)
+                                           draws, group)
     total.backward()
+    if group is not None:
+        all_reduce_grads(models, group)
     optimizer.step()
     schedule.step()
     return _detached(losses), _detached(outputs)

@@ -1,23 +1,31 @@
 """Training orchestrator of the port: epoch loop, validation, logging and
 checkpoints (port of movedepth_tpu/train/trainer.py).
 
-The models, the data, the optimizer and the randomness live in one
-process on one device: ``cuda`` unless the caller asks for ``cpu``.
+Each process trains on one device: ``cuda`` unless the caller asks for
+``cpu``. Data-parallel training runs one such process per card under a
+process group (``parallel/dist.py``, started by ``cli/train`` under
+torchrun): each rank reads its rank-strided shard of the train and val
+lists at ``cfg.batch_size`` rows, its BatchNorms and masked means see the
+global batch, and its gradients are averaged over the ranks before Adam,
+so that the ranks take the steps of one process at the global batch.
+Every rank stops its epoch at the fewest steps any rank's shard gives.
+Rank 0 alone logs and writes checkpoints; every rank restores.
+
 Randomness comes from two explicit ``torch.Generator``s: the weights from
 one seeded with ``cfg.seed`` (``build_models``), the masked-augmentation
 boxes and automask noise of every train and validation forward from one on
-the device seeded with ``cfg.seed + 1`` (``pipeline.sample_draws``). The
-data loader draws its own augmentation from (seed, epoch, index), as the
-JAX package's does, and reads the images with the C++ loader unless
-``native_loader`` is off (the trainer says which at start-up).
+the device seeded with ``cfg.seed + 1`` (``pipeline.sample_draws``; every
+rank draws the global batch's and keeps its rows). The data loader draws
+its own augmentation from (seed, epoch, index), as the JAX package's does,
+and reads the images with the C++ loader unless ``native_loader`` is off
+(the trainer says which at start-up).
 
 Checkpoints are reference ``.pth`` folders plus ``adam.pth``
 (train/checkpoints.py), saved every ``save_frequency`` epochs and always as
 ``last``. Resuming from a folder with ``adam.pth`` continues the step
 clock: the epoch, the z-guided bins and the learning-rate schedule go on
 where the saved run left off. A reference folder without it starts at step
-0. Distributed training and the multi-step dispatch are not ported
-(ROADMAP).
+0. The multi-step dispatch is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -35,12 +43,14 @@ from movedepth_tpu_torch.config import Config, validate
 from movedepth_tpu_torch.data.kitti import (KITTIDepthDataset,
                                             KITTIOdomDataset,
                                             KITTIRawDataset, readlines)
-from movedepth_tpu_torch.data.loader import Loader
+from movedepth_tpu_torch.data.loader import Loader, ShardedIndexSampler
 from movedepth_tpu_torch.data.splits import split_file
 from movedepth_tpu_torch.eval.evaluate import (check_device,
                                                 compute_errors_np,
                                                 resize_depth)
 from movedepth_tpu_torch.models import build_models
+from movedepth_tpu_torch.parallel import dist as D
+from movedepth_tpu_torch.parallel.sync_bn import convert_sync_batchnorm
 from movedepth_tpu_torch.train import checkpoints as C
 from movedepth_tpu_torch.train import state as S
 from movedepth_tpu_torch.train.logging import MetricsLogger
@@ -54,11 +64,16 @@ MONO_MODELS = ("pose_encoder", "pose", "mono_encoder", "mono_depth")
 GARG_SHAPE = (375, 1242)
 
 
-def garg_depth_metrics(depth_pred: np.ndarray, depth_gt: np.ndarray) -> Dict:
+GARG_NAMES = ("de/abs_rel", "de/sq_rel", "de/rms", "de/log_rms", "da/a1",
+              "da/a2", "da/a3")
+
+
+def garg_depth_metrics(depth_pred: np.ndarray, depth_gt: np.ndarray,
+                       group=None) -> Dict:
     """During-training GT metrics with the Garg crop at 375x1242, median
-    scaled: abs_rel, sq_rel, rms, log_rms and the three accuracies."""
-    names = ["de/abs_rel", "de/sq_rel", "de/rms", "de/log_rms", "da/a1",
-             "da/a2", "da/a3"]
+    scaled: abs_rel, sq_rel, rms, log_rms and the three accuracies, the
+    mean over the samples with GT in the crop (over every rank's samples
+    with a process ``group``); {} when there is none."""
     accs = []
     for i in range(depth_pred.shape[0]):
         pred = np.clip(resize_depth(depth_pred[i], GARG_SHAPE), 1e-3,
@@ -73,30 +88,47 @@ def garg_depth_metrics(depth_pred: np.ndarray, depth_gt: np.ndarray) -> Dict:
         p, g = pred[mask], gt[mask]
         p *= np.median(g) / np.median(p)
         accs.append(compute_errors_np(g, np.clip(p, 1e-3, 80)))
+    if group is not None:
+        sums = D.all_reduce_host(
+            [*np.sum(accs, 0).reshape(-1), len(accs)] if accs
+            else [0.0] * (len(GARG_NAMES) + 1), group)
+        count = sums.pop()
+        return dict(zip(GARG_NAMES, np.divide(sums, count))) if count else {}
     if not accs:
         return {}
-    return dict(zip(names, np.mean(accs, 0)))
+    return dict(zip(GARG_NAMES, np.mean(accs, 0)))
 
 
 class Trainer:
-    """The training loop of one process on one device."""
+    """The training loop of one process on one device; with a process
+    ``group``, of rank ``rank`` of ``world_size`` data-parallel ranks."""
 
     def __init__(self, cfg: Config, split_dir: Optional[str] = None,
-                 device="cuda", profile_steps: int = 0):
+                 device="cuda", profile_steps: int = 0, rank: int = 0,
+                 world_size: int = 1, group=None):
         self.cfg = validate(cfg)
         self.device = check_device(device)
+        if world_size > 1 and group is None:
+            raise ValueError(f"world_size {world_size} needs a process group")
+        self.rank, self.world_size, self.group = rank, world_size, group
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True  # fixed training shapes
         self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
         self.models = build_models(cfg, self.device)
+        if group is not None:
+            convert_sync_batchnorm(self.models, group)
 
         # data
         dataset_cls = DATASETS[cfg.dataset]
         img_ext = ".png" if cfg.png else ".jpg"
         train_files = readlines(split_file(cfg.split, "train_files.txt",
                                            split_dir))
-        val_files = readlines(split_file(cfg.split, "val_files.txt",
-                                         split_dir))
+        val_list = split_file(cfg.split, "val_files.txt", split_dir)
+        val_files = readlines(val_list)
+        if len(val_files) < world_size:  # rank r reads lines r, r + world..
+            raise ValueError(
+                f"rank {len(val_files)} of {world_size} gets no validation "
+                f"line: {val_list} has {len(val_files)}")
         self.train_dataset = dataset_cls(
             cfg.data_path, train_files, cfg.height, cfg.width, cfg.frame_ids,
             is_train=True, img_ext=img_ext, load_pose=cfg.load_pose,
@@ -106,20 +138,26 @@ class Trainer:
             is_train=False, img_ext=img_ext, load_pose=cfg.load_pose,
             seed=cfg.seed, native=cfg.native_loader)
         native = self.train_dataset.native
-        if native is None:
+        if rank == 0 and native is None:
             print("data: PIL loader (--no-native_loader)", flush=True)
-        else:
+        elif rank == 0:
             built = ("already built" if native.build_s is None
                      else f"built in {native.build_s:.1f} s")
             print(f"data: {native.describe()}; csrc/loader.cpp {built}",
                   flush=True)
         self.train_loader = Loader(
-            self.train_dataset, cfg.batch_size, shuffle=True, drop_last=True,
-            num_workers=cfg.num_workers, seed=cfg.seed)
+            self.train_dataset, cfg.batch_size, rank, world_size,
+            shuffle=True, drop_last=True, num_workers=cfg.num_workers,
+            seed=cfg.seed)
         self.val_loader = Loader(
-            self.val_dataset, cfg.batch_size, shuffle=False,
-            drop_last=False, num_workers=4, seed=cfg.seed)
-        self.steps_per_epoch = max(1, len(self.train_loader))
+            self.val_dataset, cfg.batch_size, rank, world_size,
+            shuffle=False, drop_last=False, num_workers=4, seed=cfg.seed)
+        # every rank stops at the fewest steps of any rank, the last
+        # rank's: a rank with one step more would wait in a collective
+        # forever
+        self.steps_per_epoch = max(1, len(ShardedIndexSampler(
+            len(self.train_dataset), cfg.batch_size, world_size - 1,
+            world_size)))
         self.num_total_steps = self.steps_per_epoch * cfg.num_epochs
 
         self.optimizer, self.schedule = S.create_optimizer(
@@ -140,16 +178,19 @@ class Trainer:
             self.load_weights(cfg.load_weights_folder)
         if cfg.mono_weights_folder:
             self.load_mono_weights(cfg.mono_weights_folder)
+        D.broadcast_models(self.models, group)
 
-        self.logger = MetricsLogger(self.log_path, cfg.batch_size,
+        self.logger = MetricsLogger(self.log_path, rank,
+                                    cfg.batch_size * world_size,
                                     self.num_total_steps)
-        C.save_config(self.log_path, cfg)
+        if rank == 0:
+            C.save_config(self.log_path, cfg)
         self.epoch = 0
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.seed + 1)
         self._val_iter = None
-        # torch.profiler trace of steps [2, 2 + profile_steps)
-        self.profile_steps = profile_steps
+        # torch.profiler trace of rank 0's steps [2, 2 + profile_steps)
+        self.profile_steps = profile_steps if rank == 0 else 0
         self._profiler = None
 
     # ------------------------------------------------------------- loading
@@ -174,9 +215,21 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in batch.items() if k != "depth_gt"}
 
+    def _draws(self, rows):
+        """This rank's draws for a batch of ``rows`` rows. Ranks draw for
+        ``cfg.batch_size`` rows each, which every train batch has, so
+        their generators stay alike when a rank's last val batch is
+        shorter."""
+        if self.group is None:
+            return P.sample_draws(self.cfg, rows, self.generator,
+                                  self.device)
+        draws = P.sample_draws(self.cfg, self.cfg.batch_size, self.generator,
+                               self.device, self.rank, self.world_size)
+        return dict(draws, noise=[n[:rows] for n in draws["noise"]])
+
     def _log_cadence(self, batch_idx, step):
-        early = (batch_idx % max(1, self.cfg.log_frequency) == 0
-                 and step < 2000)
+        early = (batch_idx % max(1, self.cfg.log_frequency
+                                 // self.world_size) == 0 and step < 2000)
         return early or step % 2000 == 0
 
     def _profile_tick(self):
@@ -206,50 +259,62 @@ class Trainer:
         print(f"profile: {out}/trace.json", flush=True)
 
     def _host_losses(self, losses, outputs, batch):
-        host = {k: float(v) for k, v in losses.items()}
+        """The losses and Garg metrics as floats, means over the ranks."""
+        host = D.reduce_mean_scalars({k: float(v) for k, v in losses.items()},
+                                     self.group)
         if "depth_gt" in batch:
             host.update(garg_depth_metrics(
                 outputs["depth_mono"].float().cpu().numpy(),
-                batch["depth_gt"]))
+                batch["depth_gt"], self.group))
         return host
 
     def save(self, epoch=None, snapshot_step=None, last=False):
-        return C.save_checkpoint(self.log_path, self.models, self.optimizer,
-                                 self.schedule, self.step, self.cfg,
-                                 epoch=epoch, snapshot_step=snapshot_step,
-                                 last=last)
+        """Rank 0 writes the checkpoint folder; every rank waits for it.
+        Returns the folder."""
+        path = C.checkpoint_dir(self.log_path, epoch, snapshot_step, last)
+        if self.rank == 0:
+            C.save_checkpoint(self.log_path, self.models, self.optimizer,
+                              self.schedule, self.step, self.cfg,
+                              epoch=epoch, snapshot_step=snapshot_step,
+                              last=last)
+        D.barrier(self.group)
+        return path
 
     def run_epoch(self):
         cfg = self.cfg
         use_z = self.epoch > cfg.ztrans_start_epc
         t_epoch = time.perf_counter()
         n = 0
-        for batch_idx, batch in enumerate(self.train_loader.epoch(self.epoch)):
-            t0 = time.time()
-            self._profile_tick()
-            device_batch = self._put(batch)
-            draws = P.sample_draws(cfg, batch["color"].shape[0],
-                                   self.generator, self.device)
-            losses, outputs = S.train_step(self.models, self.optimizer,
-                                           self.schedule, device_batch, cfg,
-                                           use_z, draws)
-            step = self.step
-            self.step += 1
-            n += 1
-            if self._log_cadence(batch_idx, step):
-                host = self._host_losses(losses, outputs, batch)
-                self.logger.log_time(self.epoch, batch_idx, step,
-                                     time.time() - t0, host["loss"])
-                self.logger.log_scalars("train", host, step)
-                self.logger.log_images("train", batch, outputs, step)
-                self.validate(use_z, step)
-            if cfg.save_intermediate_models and step % 2000 == 0:
-                self.save(epoch=self.epoch, snapshot_step=step)
-            if n == 1:
-                t_first = time.perf_counter()
+        batches = self.train_loader.epoch(self.epoch)
+        try:
+            for batch_idx, batch in zip(range(self.steps_per_epoch),
+                                        batches):
+                t0 = time.time()
+                self._profile_tick()
+                device_batch = self._put(batch)
+                draws = self._draws(batch["color"].shape[0])
+                losses, outputs = S.train_step(
+                    self.models, self.optimizer, self.schedule, device_batch,
+                    cfg, use_z, draws, self.group)
+                step = self.step
+                self.step += 1
+                n += 1
+                if self._log_cadence(batch_idx, step):
+                    host = self._host_losses(losses, outputs, batch)
+                    self.logger.log_time(self.epoch, batch_idx, step,
+                                         time.time() - t0, host["loss"])
+                    self.logger.log_scalars("train", host, step)
+                    self.logger.log_images("train", batch, outputs, step)
+                    self.validate(use_z, step)
+                if cfg.save_intermediate_models and step % 2000 == 0:
+                    self.save(epoch=self.epoch, snapshot_step=step)
+                if n == 1:
+                    t_first = time.perf_counter()
+        finally:
+            batches.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        if n:
+        if n and self.rank == 0:
             t_end = time.perf_counter()
             ms = (t_end - t_epoch) * 1e3 / n
             # a process's first step also autotunes cuDNN
@@ -272,10 +337,10 @@ class Trainer:
             batch = next(self._val_iter)
         for m in self.models.values():
             m.eval()
-        draws = P.sample_draws(self.cfg, batch["color"].shape[0],
-                               self.generator, self.device)
+        draws = self._draws(batch["color"].shape[0])
         _, losses, outputs = P.forward_train(self.models, self._put(batch),
-                                             self.cfg, use_z, draws)
+                                             self.cfg, use_z, draws,
+                                             self.group)
         self.logger.log_scalars("val", self._host_losses(losses, outputs,
                                                          batch), step)
         self.logger.log_images("val", batch, outputs, step)

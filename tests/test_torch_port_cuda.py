@@ -655,3 +655,112 @@ def test_cli_evaluate_launches_on_card(device, tmp_path, capsys):
                                                   "upbound"]
     for name, row in results.items():
         assert np.isfinite(row).all(), name
+
+
+@pytest.fixture
+def gloo_group(device, tmp_path, monkeypatch):
+    """A world-1 gloo process group holding CUDA tensors (file://
+    rendezvous), left again after the test."""
+    from movedepth_tpu_torch.parallel import dist as D
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                       ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(key, value)
+    D.initialize_distributed("cuda", backend="gloo",
+                             init_method=f"file://{tmp_path / 'rdzv'}")
+    yield D.default_group()
+    torch.distributed.destroy_process_group()
+
+
+def test_sync_batchnorm_bf16_autocast_matches_batchnorm(gloo_group):
+    """Under bfloat16 autocast at world 1 the synchronized BatchNorm
+    returns bfloat16, as nn.BatchNorm does there, and agrees with it in
+    output within a bf16 step (1e-2), in the input gradient (through a
+    bf16 conv) and the weight and bias gradients within 1e-2 relative L2
+    (nn.BatchNorm's bf16 backward rounds to bf16 inside: its weight
+    gradient lay 2.7e-3 from the float32 one on the card), and in the
+    running statistics within 1e-5."""
+    from movedepth_tpu_torch.parallel.sync_bn import (SyncBatchNorm,
+                                                      convert_sync_batchnorm)
+    gen = torch.Generator("cuda").manual_seed(0)
+    conv = torch.nn.Conv2d(8, 16, 3, padding=1).cuda()
+    x = torch.randn(4, 8, 24, 32, device="cuda", generator=gen) * 2 + 1
+    g = torch.randn(4, 16, 24, 32, device="cuda", generator=gen)
+    plain = torch.nn.BatchNorm2d(16).cuda()
+    synced = convert_sync_batchnorm(
+        {"m": torch.nn.Sequential(copy.deepcopy(plain))}, gloo_group)["m"]
+    assert isinstance(synced[0], SyncBatchNorm)
+    out = []
+    for bn in (plain, synced):
+        xin = x.clone().requires_grad_(True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = bn(conv(xin))
+        assert y.dtype == torch.bfloat16
+        (y.float() * g).sum().backward()
+        out.append((y.float(), xin.grad))
+    (ya, dxa), (yb, dxb) = out
+    torch.testing.assert_close(yb, ya, rtol=1e-2, atol=1e-2)
+    assert float((dxb - dxa).norm() / dxa.norm()) <= 1e-2
+    sb = synced[0]
+    for a, b in ((plain.weight.grad, sb.weight.grad),
+                 (plain.bias.grad, sb.bias.grad)):
+        assert float((a - b).norm() / a.norm()) <= 1e-2
+    torch.testing.assert_close(sb.running_mean, plain.running_mean,
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sb.running_var, plain.running_var,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sync_batchnorm_float32_matches_batchnorm(gloo_group, dim):
+    """In float32 at world 1 the synchronized BatchNorm's card kernels
+    (batch_norm_stats, _elemt and the backward's _reduce and _elemt)
+    agree with nn.BatchNorm within 1e-5 in output, input, weight and bias
+    gradients and running statistics, for 4D and 5D inputs."""
+    from movedepth_tpu_torch.parallel.sync_bn import convert_sync_batchnorm
+    gen = torch.Generator("cuda").manual_seed(dim)
+    shape = (4, 16, 12, 20) + (6,) * (dim - 2)
+    x = torch.randn(shape, device="cuda", generator=gen) * 3 + 2
+    g = torch.randn(shape, device="cuda", generator=gen)
+    plain = (torch.nn.BatchNorm2d if dim == 2 else torch.nn.BatchNorm3d)(
+        16).cuda()
+    with torch.no_grad():
+        plain.weight.uniform_(0.5, 1.5, generator=gen)
+        plain.bias.uniform_(-1, 1, generator=gen)
+    synced = convert_sync_batchnorm(
+        {"m": torch.nn.Sequential(copy.deepcopy(plain))}, gloo_group)["m"]
+    out = []
+    for bn in (plain, synced):
+        xin = x.clone().requires_grad_(True)
+        y = bn(xin)
+        (y * g).sum().backward()
+        out.append((y, xin.grad))
+    sb = synced[0]
+    for got, want in ((out[1][0], out[0][0]), (out[1][1], out[0][1]),
+                      (sb.weight.grad, plain.weight.grad),
+                      (sb.bias.grad, plain.bias.grad),
+                      (sb.running_mean, plain.running_mean),
+                      (sb.running_var, plain.running_var)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_all_reduce_grads_on_the_card(gloo_group):
+    """The gradient all-reduce and the broadcast on CUDA tensors at world
+    1: gradients unchanged (averaged over one rank), a missing gradient
+    left None, parameters unchanged."""
+    from movedepth_tpu_torch.parallel import dist as D
+    gen = torch.Generator("cuda").manual_seed(1)
+    models = {"a": torch.nn.Linear(5, 3).cuda(),
+              "b": torch.nn.Linear(3, 2).cuda()}
+    before = {k: [p.detach().clone() for p in m.parameters()]
+              for k, m in models.items()}
+    models["a"](torch.randn(7, 5, device="cuda", generator=gen)).sum() \
+        .backward()
+    grads = [p.grad.clone() for p in models["a"].parameters()]
+    D.broadcast_models(models, gloo_group)
+    D.all_reduce_grads(models, gloo_group)
+    assert all(torch.equal(p.grad, g)
+               for p, g in zip(models["a"].parameters(), grads))
+    assert all(p.grad is None for p in models["b"].parameters())
+    for k, m in models.items():
+        assert all(torch.equal(p, q) for p, q in zip(m.parameters(),
+                                                     before[k]))

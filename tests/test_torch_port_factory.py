@@ -12,13 +12,14 @@ import torch
 from movedepth_tpu_torch import Config, native
 from movedepth_tpu_torch import pipeline as P
 from movedepth_tpu_torch.models import build_models
+from movedepth_tpu_torch.ops.masking import sample_box
 
 
 def test_factory_defaults_to_the_card():
-    """build_models, synthetic_batch and sample_draws put their tensors on
-    the card unless the caller asks for the CPU; without a card they raise
-    rather than fall back."""
-    for fn in (build_models, P.synthetic_batch, P.sample_draws):
+    """build_models, synthetic_batch, sample_draws and sample_box put their
+    tensors on the card unless the caller asks for the CPU; without a card
+    they raise rather than fall back."""
+    for fn in (build_models, P.synthetic_batch, P.sample_draws, sample_box):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the defaults do not raise here")
@@ -29,6 +30,8 @@ def test_factory_defaults_to_the_card():
         P.synthetic_batch(cfg, 1)
     with pytest.raises((RuntimeError, AssertionError)):
         P.sample_draws(cfg, 1)
+    with pytest.raises((RuntimeError, AssertionError)):
+        sample_box(64, 96, (21, 32))
 
 
 def test_factory_on_the_cpu_when_asked():

@@ -322,8 +322,9 @@ def test_random_image_mask_matches_jax_with_its_draw(rng):
 def test_sample_box_is_seeded_and_in_range():
     g1 = torch.Generator().manual_seed(3)
     g2 = torch.Generator().manual_seed(3)
-    boxes = [M.sample_box(64, 96, (21, 32), g1) for _ in range(20)]
-    assert boxes == [M.sample_box(64, 96, (21, 32), g2) for _ in range(20)]
+    boxes = [M.sample_box(64, 96, (21, 32), g1, "cpu") for _ in range(20)]
+    assert boxes == [M.sample_box(64, 96, (21, 32), g2, "cpu")
+                     for _ in range(20)]
     assert all(0 <= x < 64 and 0 <= y < 43 for x, y in boxes)
 
 

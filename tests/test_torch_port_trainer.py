@@ -130,9 +130,9 @@ def test_trainer_resume_continues_the_step_clock(kitti_tree, trained,
     seen_use_z = []
     step = S.train_step
 
-    def spy(models, opt, sched, batch, cfg, use_z, draws):
+    def spy(models, opt, sched, batch, cfg, use_z, draws, group=None):
         seen_use_z.append(use_z)
-        return step(models, opt, sched, batch, cfg, use_z, draws)
+        return step(models, opt, sched, batch, cfg, use_z, draws, group)
 
     monkeypatch.setattr(S, "train_step", spy)
     trainer.train()
