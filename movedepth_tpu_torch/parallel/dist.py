@@ -169,10 +169,11 @@ def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None):
             raise RuntimeError(
                 "ranks disagree on which parameters have a gradient: "
                 f"{sum(c not in (0, world) for c in counts)} parameters")
-        flat = flat[:-len(same)].div_(world)
-        for p, part in zip(same, flat.split([p.numel() for p in same])):
-            if p.grad is not None:
-                p.grad.copy_(part.view_as(p.grad))
+        parts = flat[:-len(same)].div_(world).split([p.numel()
+                                                     for p in same])
+        held = [(p.grad, part.view_as(p)) for p, part in zip(same, parts)
+                if p.grad is not None]
+        torch._foreach_copy_([g for g, _ in held], [v for _, v in held])
 
 
 def all_reduce_host(values: Sequence[float], group=None) -> list:
