@@ -10,10 +10,11 @@ from GSPMD is made explicit here:
 
   * the models start identical on every rank: ``broadcast_models`` sends
     rank 0's parameters and buffers (the JAX ``replicate`` assumes it);
-  * BatchNorm sees the global batch (``parallel/sync_bn.py``) and so do
-    the masked means of the losses (``ops/losses.masked_mean`` with a
-    group), both through :func:`all_reduce_sum`, whose backward sums the
-    cotangents across ranks;
+  * BatchNorm sees the global batch (``parallel/sync_bn.py``, whose
+    backward all-reduces the statistics' gradient terms), and so do the
+    masked means of the losses (``ops/losses.masked_mean`` with a group,
+    through :func:`all_reduce_sum`, whose backward sums the cotangents
+    across ranks);
   * gradients are averaged across ranks by ``all_reduce_grads`` between
     ``backward()`` and the optimizer step: one coalesced all-reduce, not a
     ``DistributedDataParallel`` wrapper (the train forward calls some

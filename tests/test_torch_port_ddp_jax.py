@@ -16,7 +16,6 @@ keys', ``GRAD_TOL`` for the gradients read after the all-reduce, and
 import numpy as np
 import optax
 import pytest
-import torch
 
 import jax
 
@@ -59,15 +58,14 @@ def test_ddp_step_gradients_match_jax(jax_side, ranks, use_z_bins):  # noqa
     """Each model's gradient after the all-reduce, the same on both
     ranks, against the JAX step's within GRAD_TOL (relative L2)."""
     grads = jax_side[2][use_z_bins][1]
-    got = [res["jobs"][use_z_bins]["grads"] for res in ranks]
+    got = [ranks[0]["jobs"][use_z_bins]["grads"]]
     assert sorted(grads) == sorted(got[0])
     for name in grads:
         want = state_dict_from_jax(name, {"params": grads[name]}, CFG.scales)
         assert sorted(want) == sorted(got[0][name]), name
         err = rel_l2(got[0][name], want)
         assert err <= GRAD_TOL.get(name, 5e-3), (name, err)
-        assert all(torch.equal(v, got[1][name][k])
-                   for k, v in got[0][name].items()), name
+    assert ranks[1]["jobs"][use_z_bins]["grad_gap"] == 0.0
 
 
 @pytest.mark.parametrize("use_z_bins", [False, True])
@@ -90,10 +88,10 @@ def test_ddp_step_adam_matches_optax(jax_side, ranks, use_z_bins):  # noqa
     tx = JS.create_optimizer(CFG, 1000, params)
     upd, _ = tx.update(grads, tx.init(params), params)
     new = jax.tree.map(np.asarray, optax.apply_updates(params, upd))
+    assert job[1]["state_gap"] == 0.0
     for name in params:
         want = state_dict_from_jax(name, {"params": new[name]}, CFG.scales)
         for k, w in want.items():
             got = job[0]["params"][name][k]
-            assert torch.equal(got, job[1]["params"][name][k]), (name, k)
             np.testing.assert_allclose(got.numpy(), w.numpy(), atol=1e-6,
                                        err_msg=f"{name}.{k}")

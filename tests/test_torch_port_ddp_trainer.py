@@ -12,7 +12,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from movedepth_tpu_torch import Config
 from test_torch_port_ddp import DRIVE, run_ranks
@@ -98,28 +97,20 @@ def test_ddp_trainer_rank0_writes(trainer_ranks):
         == ["dist", "kernel launches"]
 
 
-def _equal_states(a, b):
-    for name in a["models"]:
-        for k, v in a["models"][name].items():
-            assert torch.equal(v, b["models"][name][k]), (name, k)
-    sa, sb = a["adam"]["state"], b["adam"]["state"]
-    assert sa.keys() == sb.keys() and len(sa) > 0
-    for i in sa:
-        for k, v in sa[i].items():
-            assert torch.equal(v, sb[i][k]), (i, k)
-
-
 def test_ddp_trainer_restores_on_every_rank(trainer_ranks):
     """Both ranks restore ``last``: the step clock resumes at 2, the
-    weights and Adam's state are the trained ones and equal across ranks,
-    and after the second epoch (step 4) they are still equal."""
+    weights, BatchNorm statistics and Adam's state are the trained ones
+    and equal across ranks, and after the second epoch (step 4) they are
+    still equal (each rank's largest difference from rank 0 is 0)."""
     _, ranks = trainer_ranks
     assert [res["resumed_step"] for res in ranks] == [2, 2]
     assert [res["final_step"] for res in ranks] == [4, 4]
-    _equal_states(ranks[0]["trained"], ranks[1]["trained"])
-    _equal_states(ranks[0]["resumed"], ranks[1]["resumed"])
-    _equal_states(ranks[0]["resumed"], ranks[0]["trained"])
-    _equal_states(ranks[0]["final"], ranks[1]["final"])
+    for res in ranks:
+        count, trained = res["restored_count"]
+        assert count == trained and res["adam_states"] > 0
+        assert res["restored_diff"] == 0.0
+        assert res["trained_gap"] == res["resumed_gap"] == 0.0
+        assert res["final_gap"] == 0.0
 
 
 def test_ddp_trainer_refuses_an_empty_val_shard(trainer_ranks):
