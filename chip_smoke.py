@@ -31,7 +31,7 @@ without printing the final ok line:
    float32 disparities on the card against the CPU under phase 4's gates
    at batch 1 and at batch 2 with post_process, and one batch-5 forward's
    outputs (cost_prob included); images/s of predict_disparities at batch
-   1 and 5 on the 12 lines repeated to 240, two passes each.
+   1 and 5 on the 12 lines repeated to 120, two passes each.
 6. throughput: forward_infer frames/s in bfloat16 at batch 128, with the
    kernel and with its plain version in turns (twice each), and at batch 1.
 7. train kernels: the sweep warp and the border image warp, forward and
@@ -64,8 +64,10 @@ without printing the final ok line:
    KITTI-layout tree of synthetic 1242x375 JPEGs at 640x192, batch 12,
    bfloat16, --kernel_l1, with the native loader (its default; the CLI
    must say so), 2 epochs with validation and checkpoints, then a resume
-   from ``last`` for a third epoch; its kernel launches, wall ms/step
-   against phase 9b's train_step.
+   from ``last`` for a third epoch with ``--steps_per_dispatch 2`` (phase
+   14's dispatch: one CUDA graph of the step, replayed twice, Adam's state
+   from the checkpoint); its kernel launches, wall ms/step against phase
+   9b's train_step.
 10a. the train loader, this slice's path: ``Loader.epoch`` over 240 train
    lines of synthetic 1242x375 JPEGs at batch 12, 640x192, with flips and
    jitter, 12 threads: the PIL path and the C++ loader in turns, two
@@ -92,6 +94,22 @@ without printing the final ok line:
    12c: in this process, a world-1 nccl group: the bfloat16 batch-12
    train_step with the group (SyncBatchNorm, global masked means, gradient
    all-reduce) and without it, in turns, and the gradient all-reduce alone.
+13. the serving export, this slice's path: ``cli/export_model.
+   build_export`` of the bfloat16 640x192 forward with phase 5's weights,
+   MVS at batch 1 and 128 and mono at batch 1: export, save, load, run;
+   the loaded program against the live forward under phase 4's gates (and
+   its worst difference), row 1's launches per call, loaded against live
+   timed in turns.
+14. the multi-step dispatch, this slice's path: ``steps_per_dispatch`` 4
+   at bfloat16 batch 12, 640x192, kernel_l1: a CUDA graph of one step
+   against eager steps (step 1's losses and gradients, later steps beside
+   two eager runs' spread, and each replay against an eager step from its
+   state), ms/step eager against graphed in turns without a group and
+   under a world-1 nccl group, the memory the graph holds, launches of
+   rows 2, 3 and 4b per replay (the train CLI's dispatch runs in phase
+   10's resume).
+
+After each phase a ``[time]`` line gives the seconds since the start.
 
 Kernel times (``ms``) are device times: many bare launches (the typed C
 function on preallocated outputs, no checks, no allocation) back to back
@@ -913,9 +931,11 @@ def phase_throughput(cpu_models, card):
     kernel = P.sweep_warp_corr
     runs = [(128, 10, "kernel"), (128, 10, "plain"), (128, 10, "kernel"),
             (128, 10, "plain"), (1, 50, "kernel")]
+    batches = {bsz: P.synthetic_batch(cfg.replace(frame_ids=cfg.matching_ids),
+                                      bsz, seed=1, device="cuda")
+               for bsz in (128, 1)}  # one numpy batch of 128 takes seconds
     for bsz, iters, label in runs:
-        batch = P.synthetic_batch(cfg.replace(frame_ids=cfg.matching_ids),
-                                  bsz, seed=1, device="cuda")
+        batch = batches[bsz]
         torch.cuda.reset_peak_memory_stats()
         P.sweep_warp_corr = (kernel if label == "kernel"
                              else SW.sweep_warp_corr_reference)
@@ -1037,8 +1057,8 @@ def _clamp_launches(card):
 
 
 def _dsrc_check(name, src, sx, sy, g, bf16=False):
-    """The sweep warp's source gradient through the kernel (SweepWarp's
-    backward) against the plain version's autograd on the same inputs, in
+    """The sweep warp's source gradient through the kernel (the op
+    ``movedepth::sweep_warp_bwd``) against the plain version's autograd on the same inputs, in
     float32 (bf16: src and g rounded to bfloat16 first, the plain version
     in float32). Returns (max |kernel - plain|, the kernel's dsrc)."""
     import torch
@@ -1063,10 +1083,10 @@ def phase_sweep_warp(card):
     float32 gradient twice, for the run-to-run difference) and on
     KITTI-speed coordinates. Times, in bfloat16, each on both coordinate
     sets: the forward (bare launch) and the whole backward (every launch
-    SweepWarp.backward makes, on preallocated tensors: zero the float32
-    buffer, the kernel, the cast); then the plain versions and the library
-    calls. Returns the two kernels' summary
-    records and ``gen``, for phase 7's image warp."""
+    ``movedepth::sweep_warp_bwd`` makes, on preallocated tensors: zero the
+    float32 buffer, the kernel, the cast); then the plain versions and the
+    library calls. Returns the two kernels' summary records and ``gen``,
+    for phase 7's image warp."""
     import torch
     import torch.nn.functional as F
     from movedepth_tpu_torch.ops import sweep_warp as SW
@@ -1322,7 +1342,7 @@ def phase_l1_kernel(img, gx, gy):
         "in all")
 
     def two_step(sx=gx, sy=gy):
-        out = IW.WarpImagesBorder.apply(img, sx, sy)
+        out = IW.warp_images_border(img, sx, sy)
         return out, torch.mean(torch.abs(out - tgt[:, None]), dim=-1)
 
     iw = IW.kernel_library()
@@ -1387,16 +1407,14 @@ def _grad_rel(models, ref_models):
 
 
 def _launch_counts():
-    from movedepth_tpu_torch.cli.train import kernel_launches
+    from movedepth_tpu_torch.ops import kernel_launches
     return kernel_launches()
 
 
 def _zero_launch_counts():
-    from movedepth_tpu_torch.ops import image_warp as IW
-    from movedepth_tpu_torch.ops import sweep_warp as SW
-    SW.warp_launches = SW.warp_bwd_launches = 0
-    IW.launches = IW.bwd_launches = 0
-    IW.l1_launches = IW.l1_bwd_launches = 0
+    from movedepth_tpu_torch.ops import LAUNCH_COUNTERS
+    for mod, name in LAUNCH_COUNTERS.values():
+        setattr(mod, name, 0)
 
 
 def _f32_step(cfg, step_models, step_batch, step_draws):
@@ -1637,7 +1655,7 @@ CALIB_VELO = (
     "7.280733e-04 -9.998902e-01 9.998621e-01 7.523790e-03 1.480755e-02\n"
     "T: -4.069766e-03 -7.631618e-02 -2.717806e-01\n")
 EVAL_LINES = 12
-EVAL_TIMED_LINES = 240  # the 12 repeated: a timed pass lasts seconds
+EVAL_TIMED_LINES = 120  # the 12 repeated: a timed pass lasts seconds
 
 
 def _write_eval_tree(root, lines=EVAL_LINES):
@@ -1757,18 +1775,24 @@ def phase_train_cli(l1_ms, card):
 
         last = os.path.join(models_dir, "last")
         _, epochs2, launches2 = _train_cli(
-            common + ["--num_epochs", "3", "--load_weights_folder", last],
-            360)
+            common + ["--num_epochs", "3", "--load_weights_folder", last,
+                      "--steps_per_dispatch", "2"], 360)
         step2 = _check_folders(models_dir, ("weights_2", "last"),
                                ALL_MODELS)
-        log(f"[cli] resume from last: step {step} -> {step2}, epochs "
-            f"{sorted(epochs2)}; kernel launches {launches2}")
+        log(f"[cli] resume from last with --steps_per_dispatch 2: step "
+            f"{step} -> {step2}, epochs {sorted(epochs2)}; kernel launches "
+            f"{launches2}")
         if step2 != 6 or sorted(epochs2) != [2] or epochs2[2][0] != 2:
             raise RuntimeError("the resume did not train epoch 2 from step 4")
+        if not all(launches2[r] for r in GRAPHED_ROWS):
+            raise RuntimeError(f"the graphed resume launched no kernel of "
+                               f"rows 2, 3 and 4b: {launches2}")
     walls = {e: ms for e, (_, ms, _) in
              sorted({**epochs, **epochs2}.items())}
-    log(f"[cli] trainer wall ms/step by epoch {walls} against train_step "
-        f"with kernel_l1 {l1_ms:.3f} ms/step (phase 9b); {card}")
+    log(f"[cli] trainer wall ms/step by epoch {walls} (epoch 2: one "
+        f"graphed dispatch of 2 steps, its warm-up and capture included) "
+        f"against train_step with kernel_l1 {l1_ms:.3f} ms/step (phase 9b); "
+        f"{card}")
     return launches, {e: warm for e, (_, _, warm) in epochs.items()}
 
 
@@ -2272,6 +2296,312 @@ def phase_ddp_overhead(cpu_models, card):
 
 
 
+# ------------------------------------------------------------ phases 13-14
+
+EXPORT_RUNS = ((False, 1), (False, 128), (True, 1))  # (mono, batch)
+MULTISTEP_K = 4  # phase 14's steps per dispatch
+# rows 2, 3 and 4b: the kernels a replay of the graphed kernel_l1 step runs
+GRAPHED_ROWS = ("sweep_warp", "sweep_warp_bwd", "warp_images_border_l1",
+                "warp_images_border_l1_coord_bwd")
+
+
+def phase_export(cpu_models, card):
+    """Phase 13: ``cli/export_model.build_export`` of the serving forward
+    in the shipped config (bfloat16 autocast, 640x192, ResNet18, 16 bins)
+    with phase 5's weights: the MVS forward at batch 1 and 128, the mono
+    one at batch 1. Each is exported (timed), saved, loaded and run; its
+    outputs against the live forward on the same inputs under phase 4's
+    gates (disp_mono, depth_mvs; the worst absolute difference beside);
+    row 1's launches per call of the loaded program; the loaded program
+    and the live forward timed in turns (live, loaded, loaded, live; CUDA
+    events, median of 5 at batch 128, 25 at batch 1). Returns row 1's
+    launches per call of the batch-1 MVS program."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch.cli import export_model as EM
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
+    torch.backends.cudnn.benchmark = True
+    with tempfile.TemporaryDirectory() as tmp:
+        for mono, bsz in EXPORT_RUNS:
+            tag = f"{'mono' if mono else 'MVS'} batch {bsz}"
+            t0 = time.perf_counter()
+            program = EM.build_export(cfg, models, mono, bsz, "cuda")
+            t_export = time.perf_counter() - t0
+            path = os.path.join(tmp, "movedepth.pt2")
+            t0 = time.perf_counter()
+            torch.export.save(program, path)
+            loaded = torch.export.load(path).module()
+            t_io = time.perf_counter() - t0
+            del program
+            live = EM.ServingForward(models, cfg, mono)
+            inputs = EM.example_inputs(cfg, mono, bsz, "cuda")
+            names = EM.OUTPUTS[mono]
+            with torch.no_grad():
+                SW.launches = 0
+                got = dict(zip(names, loaded(*inputs)))
+                torch.cuda.synchronize()
+                launched = SW.launches
+                want = dict(zip(names, live(*inputs)))
+                failed, worst = [], {}
+                for name in names:
+                    if not torch.isfinite(got[name]).all():
+                        failed.append(f"{name} not finite")
+                    worst[name] = float((got[name] - want[name]).abs().max())
+                    # the depths take depth_mvs's gates, the disparities
+                    # disp_mono's
+                    st = _stats(got[name], want[name])
+                    gated = "disp_mono" if name.startswith("disp") else (
+                        "depth_mvs")
+                    failed += [f"{name}.{k} {st[k]:.3e} > {bound}"
+                               for (n, k), bound in GATES.items()
+                               if n == gated and not st[k] <= bound]
+                if failed:
+                    raise RuntimeError(f"13 {tag}: exported vs live gates "
+                                       "failed: " + "; ".join(failed))
+                if launched != (0 if mono else 1):
+                    raise RuntimeError(f"13 {tag}: row 1 launched {launched}"
+                                       " times in one call")
+                if not mono:
+                    mvs_launches = launched
+                runs = 5 if bsz > 1 else 25
+                times = {"live": [], "loaded": []}
+                for label in ("live", "loaded", "loaded", "live"):
+                    fn = loaded if label == "loaded" else live
+                    times[label].append(cuda_ms(lambda: fn(*inputs),
+                                                runs=runs, warmup=3))
+            log(f"[export] {tag}, bfloat16, 640x192: export "
+                f"{t_export:.1f} s, save and load {t_io:.1f} s, "
+                f"{os.path.getsize(path) / 1e6:.1f} MB; loaded vs live "
+                f"worst |diff| " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in worst.items())
+                + f" (gates of phase 4 pass); row 1 launches per call "
+                f"{launched}; ms/call in turns: live {times['live']}, "
+                f"loaded {times['loaded']} (median of {runs}); {card}")
+            del loaded
+    log(f"[export] phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return mvs_launches
+
+
+def _multistep_inputs(cfg, k):
+    """k synthetic batches at cfg.batch_size on the card and their draws
+    from one generator, as a trainer would draw them."""
+    import torch
+    from movedepth_tpu_torch import pipeline as P
+    gen = torch.Generator("cuda").manual_seed(4)
+    bsz = cfg.batch_size
+    batches = [P.synthetic_batch(cfg, bsz, seed=10 + i, device="cuda")
+               for i in range(k)]
+    return batches, [P.sample_draws(cfg, bsz, gen, "cuda") for _ in range(k)]
+
+
+def _multistep_equality(train_models, cfg, batches, draws):
+    """Phase 14's equality. (1) From one state, K eager train_steps (twice:
+    their spread is the yardstick) against one graphed dispatch of K:
+    step 1's losses within 1e-5 relative, its gradients (the first
+    dispatch of (2)) per model under phase 8's rule (relative L2 at most
+    5e-3 or twice the eager runs' spread), step 2's total loss within the JAX test's loose
+    tier (5e-3, or twice the eager spread) and every parameter after K
+    steps within rtol 5e-2 / atol 1e-3; steps 3 to K are reported beside
+    the eager spread, not gated: the backward's atomics (row 3's float32
+    source gradient, cuDNN's bf16 weight gradients) sum in another order
+    on every run, and through the automask's discrete choices and Adam's
+    first steps (a flipped near-zero gradient moves a weight by 2 * lr) two
+    eager runs part by several percent there. (2) Every replay is exact:
+    K single-step dispatches in a row, each against one eager step from
+    the graphed models' state (parameters, statistics and Adam's state
+    copied in), every loss within 1e-5 relative at every step."""
+    import torch
+    from movedepth_tpu_torch.train import state as S
+    k = len(batches)
+
+    def fresh():
+        models = {n: copy.deepcopy(m).cuda() for n, m in train_models.items()}
+        return (models,) + S.create_optimizer(models, cfg)
+
+    def eager():
+        models, opt, sched = fresh()
+        losses = []
+        for i in range(k):
+            losses.append(S.train_step(models, opt, sched, batches[i], cfg,
+                                       True, draws[i])[0])
+            if i == 0:
+                grads = {n: [p.grad.clone() for p in m.parameters()]
+                         for n, m in models.items()}
+        return models, losses, grads
+
+    def grad_rel(got, want):
+        return {n: (sum(float((a - b).norm() ** 2)
+                        for a, b in zip(got[n], want[n]))
+                    / sum(float(b.norm() ** 2) for b in want[n])) ** 0.5
+                for n in want}
+
+    def rel(a, b):
+        return abs(float(a) / float(b) - 1)
+
+    models, eager_losses, grads1 = eager()
+    _, spread_losses, spread_grads = eager()
+    many = fresh()
+    got = S.make_train_multistep(*many, cfg)(batches, draws, True)
+    failed = []
+    worst1 = max((rel(got[key][0], eager_losses[0][key]), key)
+                 for key in eager_losses[0])
+    if not worst1[0] <= 1e-5:
+        failed.append(f"step 1 loss {worst1[1]} off by {worst1[0]:.3e}")
+    later = [(rel(got["loss"][i], eager_losses[i]["loss"]),
+              rel(spread_losses[i]["loss"], eager_losses[i]["loss"]))
+             for i in range(1, k)]
+    if not later[0][0] <= max(5e-3, 2 * later[0][1]):
+        failed.append(f"step 2 loss off by {later[0][0]:.3e} (eager spread "
+                      f"{later[0][1]:.3e})")
+    with torch.no_grad():
+        excess = max(float(((a - b).abs() - 1e-3 - 5e-2 * b.abs()).max())
+                     for n in models for a, b in
+                     zip(many[0][n].parameters(), models[n].parameters()))
+    if not excess <= 0:
+        failed.append(f"parameters after {k} steps off the loose tier by "
+                      f"{excess:.3e}")
+
+    graphed, (ref, ref_opt, ref_sched) = fresh(), fresh()
+    multi = S.make_train_multistep(*graphed, cfg)
+    synced = []
+    for i in range(k):
+        with torch.no_grad():
+            for n, m in graphed[0].items():
+                for a, b in zip(ref[n].parameters(), m.parameters()):
+                    a.copy_(b)
+                    for key, v in graphed[1].state.get(b, {}).items():
+                        if a in ref_opt.state:
+                            ref_opt.state[a][key].copy_(v)
+                for a, b in zip(ref[n].buffers(), m.buffers()):
+                    a.copy_(b)
+        want = S.train_step(ref, ref_opt, ref_sched, batches[i], cfg, True,
+                            draws[i])[0]
+        step = multi(batches[i:i + 1], draws[i:i + 1], True)
+        synced.append(max(rel(step[key][0], want[key]) for key in want))
+        if i == 0:  # a dispatch of 1 from the first state: step 1's grads
+            gaps = grad_rel({n: [p.grad for p in m.parameters()]
+                             for n, m in graphed[0].items()}, grads1)
+    failed += [f"replay {i + 1} loss off its eager step by {v:.3e}"
+               for i, v in enumerate(synced) if not v <= 1e-5]
+    spread = grad_rel(spread_grads, grads1)
+    failed += [f"step 1 gradient of {n} rel L2 {v:.3e} (eager spread "
+               f"{spread[n]:.3e})" for n, v in gaps.items()
+               if not v <= max(5e-3, 2 * spread[n])]
+    log(f"[multistep] {k} eager steps (twice) vs one graphed dispatch: "
+        f"step 1 worst loss rel {worst1[0]:.3e} ({worst1[1]}); "
+        "step 1 gradient rel L2 by model, graphed (eager spread) " + ", ".join(
+            f"{n} {v:.3e} ({spread[n]:.3e})" for n, v in gaps.items())
+        + "; later steps' total loss rel, graphed (eager spread) " + ", ".join(
+            f"{v:.3e} ({e:.3e})" for v, e in later)
+        + f"; parameters after {k} steps: worst excess over rtol 5e-2 / "
+        f"atol 1e-3 {excess:.3e}; each replay against an eager step from "
+        "its state, worst loss rel " + ", ".join(f"{v:.3e}" for v in synced))
+    if failed:
+        raise RuntimeError("14 equality gates failed: " + "; ".join(failed))
+
+
+def _multistep_turns(train_models, cfg, batches, draws, card, group=None):
+    """ms/step of K eager train_steps against one graphed dispatch of K,
+    in turns (eager, graphed, graphed, eager; CUDA events around the K
+    steps, median of 3 after 1 warmup), the capture before them; the peak
+    memory allocated in the eager turns, and the memory the graph holds
+    (reserved after its capture, beyond what was reserved before it); then
+    the launches of rows 2, 3 and 4b per graphed step, counted from 0 over
+    one dispatch. With ``group`` the
+    models carry SyncBatchNorm and both paths the group."""
+    import torch
+    from movedepth_tpu_torch.parallel.sync_bn import convert_sync_batchnorm
+    from movedepth_tpu_torch.train import state as S
+    k = len(batches)
+
+    def fresh():
+        models = {n: copy.deepcopy(m).cuda() for n, m in train_models.items()}
+        if group is not None:
+            convert_sync_batchnorm(models, group)
+        return (models,) + S.create_optimizer(models, cfg)
+
+    eager_models, eager_opt, eager_sched = fresh()
+    graphed = fresh()
+    multi = S.make_train_multistep(*graphed, cfg, group)
+
+    def eager():
+        for b, d in zip(batches, draws):
+            S.train_step(eager_models, eager_opt, eager_sched, b, cfg, True,
+                         d, group)
+
+    # what the graph holds: its private pool (one step's activations) and
+    # its static tensors, reserved for as long as the graph lives
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    multi(batches, draws, True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_reserved() - before) / 2 ** 30
+    turns = {"eager": [], "graphed": []}
+    peaks = []
+    for label in ("eager", "graphed", "graphed", "eager"):
+        fn = eager if label == "eager" else (
+            lambda: multi(batches, draws, True))
+        torch.cuda.reset_peak_memory_stats()
+        turns[label].append(cuda_ms(fn, runs=3, warmup=1) / k)
+        if label == "eager":
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    _zero_launch_counts()
+    multi(batches, draws, True)
+    torch.cuda.synchronize()
+    launches = {n: v / k for n, v in _launch_counts().items()}
+    where = "world-1 nccl group" if group is not None else "no group"
+    log(f"[multistep] bfloat16 batch {cfg.batch_size}, 640x192, kernel_l1, "
+        f"K={k}, {where}: ms/step in turns eager {turns['eager']}, graphed "
+        f"{turns['graphed']}; peak allocated in the eager turns {peaks} "
+        f"GiB (both model sets resident), the graph holds {held:.3f} GiB "
+        f"more (reserved after its capture); launches per graphed step "
+        f"{launches}; {card}")
+    if not all(launches[r] for r in GRAPHED_ROWS):
+        raise RuntimeError(f"14: rows 2, 3 and 4b must launch in a replay: "
+                           f"{launches}")
+    return launches
+
+
+def phase_multistep(train_models, card):
+    """Phase 14: the multi-step dispatch (``steps_per_dispatch``, a CUDA
+    graph of one train step replayed K times) in the shipped config with
+    kernel_l1 (bfloat16, batch 12, 640x192), K = MULTISTEP_K: equality
+    against eager steps (``_multistep_equality``), ms/step and peak memory
+    eager against graphed without a group and at world 1 under an nccl
+    group (phase 12c's set-up), launches per graphed step. Returns the
+    launches per graphed step (no group)."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch.parallel import dist as D
+
+    t_phase = time.perf_counter()
+    cfg = Config(kernel_l1=True)
+    torch.backends.cudnn.benchmark = True
+    batches, draws = _multistep_inputs(cfg, MULTISTEP_K)
+    _multistep_equality(train_models, cfg, batches, draws)
+    launches = _multistep_turns(train_models, cfg, batches, draws, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        try:
+            D.initialize_distributed(
+                "cuda", init_method=f"file://{os.path.join(tmp, 'rdzv')}")
+            _multistep_turns(train_models, cfg, batches, draws, card,
+                             D.default_group())
+        finally:
+            if D.is_distributed():
+                torch.distributed.destroy_process_group()
+            for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+                os.environ.pop(k, None)
+    log(f"[multistep] phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
@@ -2279,40 +2609,67 @@ def main():
     if sys.argv[1:2] == ["--ddp-rank"]:  # a rank of phase 12b
         _ddp_rank(int(sys.argv[2]), sys.argv[3])
         return
+    t_start = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] phase {phase} done after "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     card = phase_device()
     phase_build()
+    done("2")
     kernel = phase_kernel(card)
+    done("3")
     cpu_models = phase_main_path()
     phase_group_configs()
+    done("4b")
     kernel["launches"] = phase_serve(cpu_models)
+    done("5")
     kernel["launches_eval"] = phase_eval(cpu_models, card)
+    done("5b")
     phase_throughput(cpu_models, card)
+    done("6")
     sweep_kernels, gen = phase_sweep_warp(card)
     image_kernels, image_inputs = phase_train_kernels(card, gen)
     train_kernels = sweep_kernels + image_kernels
     l1_kernels = phase_l1_kernel(*image_inputs)
     del image_inputs
+    done("7b")
     launches, train_models, phase8 = phase_train_path()
     for rec in train_kernels:
         rec["launches"] = launches[rec["name"]]
     phase_train_path_l1(*phase8)
+    done("8b")
     l1_ms = phase_train_throughput(train_models, card)
+    done("9")
     cli_launches, cli_warm = phase_train_cli(l1_ms, card)
+    done("10")
     with tempfile.TemporaryDirectory() as tmp:
         splits = _write_loader_tree(tmp)
         phase_loader(tmp, card)
+        done("10a")
         phase_loader_cli(tmp, splits, l1_ms, card)
-    for rec in l1_kernels:
-        rec["launches"] = cli_launches[rec["name"]]
-    variants = phase_variants()
-    ddp_cli = phase_ddp_cli(cli_warm, card)
-    ddp_ranks = phase_ddp_ranks(card)
-    phase_ddp_overhead(train_models, card)
+        done("10b")
+        for rec in l1_kernels:
+            rec["launches"] = cli_launches[rec["name"]]
+        variants = phase_variants()
+        done("11")
+        ddp_cli = phase_ddp_cli(cli_warm, card)
+        done("12a")
+        ddp_ranks = phase_ddp_ranks(card)
+        done("12b")
+        phase_ddp_overhead(train_models, card)
+        done("12c")
+    kernel["launches_13"] = phase_export(cpu_models, card)
+    done("13")
+    graphed = phase_multistep(train_models, card)
+    done("14")
     for rec in train_kernels + l1_kernels:
         if rec["name"] in ddp_cli:
             rec["launches_12a"] = ddp_cli[rec["name"]]
         if rec["name"] in ddp_ranks:
             rec["launches_12b"] = ddp_ranks[rec["name"]]
+        rec["launches_14"] = graphed[rec["name"]]
     import torch
     log(card)
     log(json.dumps({"kernels": [kernel] + train_kernels + l1_kernels

@@ -30,19 +30,9 @@ import os
 import torch
 
 from movedepth_tpu_torch.cli.options import add_config_args, config_from_args
-from movedepth_tpu_torch.ops import image_warp, sweep_warp
+from movedepth_tpu_torch.ops import kernel_launches
 from movedepth_tpu_torch.parallel import dist as D
 from movedepth_tpu_torch.train.trainer import Trainer
-
-
-def kernel_launches() -> dict:
-    """The CUDA kernel launches of this process so far, by kernel."""
-    return {"sweep_warp": sweep_warp.warp_launches,
-            "sweep_warp_bwd": sweep_warp.warp_bwd_launches,
-            "warp_images_border": image_warp.launches,
-            "warp_images_border_coord_bwd": image_warp.bwd_launches,
-            "warp_images_border_l1": image_warp.l1_launches,
-            "warp_images_border_l1_coord_bwd": image_warp.l1_bwd_launches}
 
 
 def main(argv=None):

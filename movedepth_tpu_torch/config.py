@@ -107,7 +107,9 @@ class Config:
     kernel_l1: bool = False
     fold_stage2: bool = False  # JAX package only
     remat_batch_threshold: int = 24  # JAX package only (not ported yet)
-    steps_per_dispatch: int = 1  # > 1 is not ported yet
+    # > 1: train steps per dispatch, a CUDA graph of one step replayed on
+    # the card (train/state.py make_train_multistep)
+    steps_per_dispatch: int = 1
     scoped_vmem_limit_kib: int = 32768  # JAX package only
     infer_scoped_vmem_limit_kib: int = 40960  # JAX package only
     remat_scope: str = "full"  # JAX package only (not ported yet)

@@ -6,11 +6,13 @@ warp_images_border``, its coordinate VJP (``_coord_bwd_cw_call``) and its
 L1 epilogue (``_warp_cw_l1_cdiff``, reached with ``target=``). On CUDA
 tensors :func:`warp_images_border` runs the forward and backward kernels
 of ``csrc/image_warp.cu``, which clamp the coordinates themselves, through
-:class:`WarpImagesBorder`, or with a target :class:`WarpImagesBorderL1`; on
-CPU tensors it runs the plain PyTorch versions
-:func:`warp_images_border_reference` and
-:func:`warp_images_border_l1_reference`, which are also the kernels'
-oracles on the card.
+the ``torch.library`` ops ``movedepth::warp_images_border_fwd`` and
+``_bwd``, or with a target ``movedepth::warp_images_border_l1_fwd`` and
+``_l1_bwd``; on CPU tensors the same ops run the plain PyTorch versions
+:func:`warp_images_border_reference`,
+:func:`warp_images_border_l1_reference` and their coordinate backwards
+written out (``*_bwd_reference``), which are also the kernels' oracles on
+the card.
 
 Border padding is a clamp of the coordinates into [0, W-1] x [0, R-1]
 before sampling. The clamp is ``torch.minimum(torch.maximum(x, lo), hi)``,
@@ -103,6 +105,51 @@ def warp_images_border_l1_reference(src, sx, sy, target):
     return warped, torch.mean(torch.abs(warped - target[:, None]), dim=-1)
 
 
+def _clamp_slope(s, hi):
+    """d clamp_coords / d s: 1 inside (0, hi), 1/2 at an exact bound, 1/4
+    where 0 = hi = s, 0 outside (``torch.maximum``/``minimum``'s rule)."""
+    lo_part = torch.where(s > 0, 1.0, torch.where(s == 0, 0.5, 0.0))
+    x = torch.clamp_min(s, 0.0)
+    return lo_part * torch.where(x < hi, 1.0, torch.where(x == hi, 0.5, 0.0))
+
+
+def warp_images_border_bwd_reference(src, sx, sy, grad):
+    """Plain PyTorch version of the border warp's coordinate backward:
+    (dsx, dsy) (B, K, R, W) of the cotangent ``grad`` (B, K, R, W, C) of
+    :func:`warp_images_border_reference`, written out: the bilinear
+    sample's derivatives along x and y from the four taps of the padded
+    image (a tap past the last column or row reads 0), summed over the
+    channels against ``grad``, times the clamp's slope."""
+    b, r, w, c = src.shape
+    _, k, h, wo = sx.shape
+    x, y = clamp_coords(sx, sy, r, w)
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx = (x - x0f).reshape(b, -1, 1)
+    fy = (y - y0f).reshape(b, -1, 1)
+    table = F.pad(src.float(), (0, 0, 0, 1, 0, 1)).reshape(b, -1, c)
+    rows = torch.arange(b, device=src.device)[:, None]
+    base = (y0f.long() * (w + 1) + x0f.long()).reshape(b, -1)
+    v00, v01, v10, v11 = (table[rows, base + offset]
+                          for offset in (0, 1, w + 1, w + 2))
+    g = grad.float().reshape(b, -1, c)
+    dx = torch.sum(g * ((v01 - v00) * (1 - fy) + (v11 - v10) * fy), dim=-1)
+    dy = torch.sum(g * ((v10 - v00) * (1 - fx) + (v11 - v01) * fx), dim=-1)
+    return (dx.view(sx.shape) * _clamp_slope(sx, w - 1.0),
+            dy.view(sy.shape) * _clamp_slope(sy, r - 1.0))
+
+
+def warp_images_border_l1_bwd_reference(src, target, sx, sy, grad, grad_l1):
+    """Plain PyTorch version of the L1 epilogue's coordinate backward:
+    the L1 cotangent folded into the warp's, ``grad + (g_l1 / C) *
+    sign(warped - target)`` (sign(0) = 0, as autograd of the L1 tail
+    gives), then :func:`warp_images_border_bwd_reference`."""
+    warped = warp_images_border_reference(src, sx, sy)
+    c = src.shape[-1]
+    fold = grad.float() + (grad_l1.float()[..., None] / c) * torch.sign(
+        warped - target[:, None])
+    return warp_images_border_bwd_reference(src, sx, sy, fold)
+
+
 def kernel_library():
     """The image-warp kernels' library (compiled at first call), typed."""
     return native.load_library("image_warp", _SIGNATURES)
@@ -135,82 +182,148 @@ def _launch(fn, src, *streams, shape):
                            f"{err}")
 
 
-class WarpImagesBorder(torch.autograd.Function):
-    """The CUDA border-mode warp; the kernels clamp the coordinates, and
-    the backward applies the clamp's derivative. Differentiable with
-    respect to the coordinates only (one backward launch gives dsx and
-    dsy)."""
+# The kernels as torch.library ops of the ``movedepth`` namespace: the CPU
+# implementation is the plain version, the CUDA one the launch, the fake
+# one shapes and dtypes alone, so that torch.export traces them and a CUDA
+# graph captures them.
 
-    @staticmethod
-    def forward(ctx, src, sx, sy):
-        global launches
-        src, sx, sy = (t.contiguous() for t in (src, sx, sy))
-        b, r, w, c = src.shape
-        k = sx.shape[1]
-        out = torch.empty((b, k, r, w, c), dtype=torch.float32,
-                          device=src.device)
-        _launch(kernel_library().warp_images_border_fwd, src, sx, sy, out,
-                shape=(b, r, w, k, c))
-        launches += 1
-        ctx.save_for_backward(src, sx, sy)
-        return out
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        global bwd_launches
-        src, sx, sy = ctx.saved_tensors
-        if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
-            return None, None, None
-        b, r, w, c = src.shape
-        dsx = torch.empty_like(sx)
-        dsy = torch.empty_like(sy)
-        _launch(kernel_library().warp_images_border_bwd, src, sx, sy,
-                grad.float().contiguous(), dsx, dsy,
-                shape=(b, r, w, sx.shape[1], c))
-        bwd_launches += 1
-        return None, dsx, dsy
+@torch.library.custom_op("movedepth::warp_images_border_fwd",
+                         mutates_args=(), device_types="cpu")
+def _border_fwd(src: torch.Tensor, sx: torch.Tensor,
+                sy: torch.Tensor) -> torch.Tensor:
+    return warp_images_border_reference(src, sx, sy)
 
 
-class WarpImagesBorderL1(torch.autograd.Function):
-    """The CUDA border-mode warp with the photometric L1 epilogue, on raw
-    coordinates as :class:`WarpImagesBorder`: (warped, l1), l1 =
-    mean_c |warped - target| from the values the forward kernel computed.
-    The backward folds the L1 cotangent into the coordinate gradient in one
-    launch; it recomputes the samples from their taps, so only the inputs
-    are saved (not the (B, K, R, W, C) warped stack). Differentiable with
-    respect to the coordinates only."""
+@_border_fwd.register_kernel("cuda")
+def _border_fwd_cuda(src, sx, sy):
+    global launches
+    src, sx, sy = (t.contiguous() for t in (src, sx, sy))
+    b, r, w, c = src.shape
+    k = sx.shape[1]
+    out = torch.empty((b, k, r, w, c), dtype=torch.float32,
+                      device=src.device)
+    _launch(kernel_library().warp_images_border_fwd, src, sx, sy, out,
+            shape=(b, r, w, k, c))
+    launches += 1
+    return out
 
-    @staticmethod
-    def forward(ctx, src, target, sx, sy):
-        global l1_launches
-        src, target, sx, sy = (t.contiguous() for t in (src, target, sx, sy))
-        b, r, w, c = src.shape
-        k = sx.shape[1]
-        out = torch.empty((b, k, r, w, c), dtype=torch.float32,
-                          device=src.device)
-        l1 = torch.empty((b, k, r, w), dtype=torch.float32, device=src.device)
-        _launch(kernel_library().warp_images_border_l1_fwd, src, target, sx,
-                sy, out, l1, shape=(b, r, w, k, c))
-        l1_launches += 1
-        ctx.save_for_backward(src, target, sx, sy)
-        return out, l1
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad, grad_l1):
-        global l1_bwd_launches
-        src, target, sx, sy = ctx.saved_tensors
-        if not (ctx.needs_input_grad[2] or ctx.needs_input_grad[3]):
-            return None, None, None, None
-        b, r, w, c = src.shape
-        dsx = torch.empty_like(sx)
-        dsy = torch.empty_like(sy)
-        _launch(kernel_library().warp_images_border_l1_bwd, src, target, sx,
-                sy, grad.float().contiguous(), grad_l1.float().contiguous(),
-                dsx, dsy, shape=(b, r, w, sx.shape[1], c))
-        l1_bwd_launches += 1
-        return None, None, dsx, dsy
+@_border_fwd.register_fake
+def _border_fwd_fake(src, sx, sy):
+    return src.new_empty(tuple(sx.shape) + (src.shape[-1],),
+                         dtype=torch.float32)
+
+
+@torch.library.custom_op("movedepth::warp_images_border_bwd",
+                         mutates_args=(), device_types="cpu")
+def _border_bwd(src: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+                grad: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return warp_images_border_bwd_reference(src, sx, sy, grad)
+
+
+@_border_bwd.register_kernel("cuda")
+def _border_bwd_cuda(src, sx, sy, grad):
+    global bwd_launches
+    src, sx, sy = (t.contiguous() for t in (src, sx, sy))
+    b, r, w, c = src.shape
+    dsx = torch.empty_like(sx)
+    dsy = torch.empty_like(sy)
+    _launch(kernel_library().warp_images_border_bwd, src, sx, sy,
+            grad.float().contiguous(), dsx, dsy,
+            shape=(b, r, w, sx.shape[1], c))
+    bwd_launches += 1
+    return dsx, dsy
+
+
+@_border_bwd.register_fake
+def _border_bwd_fake(src, sx, sy, grad):
+    return torch.empty_like(sx), torch.empty_like(sy)
+
+
+def _border_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _border_backward(ctx, grad):
+    """The kernels clamp the coordinates, and the backward applies the
+    clamp's derivative; one launch gives dsx and dsy."""
+    if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
+        return None, None, None
+    dsx, dsy = _border_bwd(*ctx.saved_tensors, grad)
+    return None, dsx, dsy
+
+
+_border_fwd.register_autograd(_border_backward, setup_context=_border_setup)
+
+
+@torch.library.custom_op("movedepth::warp_images_border_l1_fwd",
+                         mutates_args=(), device_types="cpu")
+def _l1_fwd(src: torch.Tensor, target: torch.Tensor, sx: torch.Tensor,
+            sy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return warp_images_border_l1_reference(src, sx, sy, target)
+
+
+@_l1_fwd.register_kernel("cuda")
+def _l1_fwd_cuda(src, target, sx, sy):
+    global l1_launches
+    src, target, sx, sy = (t.contiguous() for t in (src, target, sx, sy))
+    b, r, w, c = src.shape
+    k = sx.shape[1]
+    out = torch.empty((b, k, r, w, c), dtype=torch.float32,
+                      device=src.device)
+    l1 = torch.empty((b, k, r, w), dtype=torch.float32, device=src.device)
+    _launch(kernel_library().warp_images_border_l1_fwd, src, target, sx, sy,
+            out, l1, shape=(b, r, w, k, c))
+    l1_launches += 1
+    return out, l1
+
+
+@_l1_fwd.register_fake
+def _l1_fwd_fake(src, target, sx, sy):
+    return (src.new_empty(tuple(sx.shape) + (src.shape[-1],),
+                          dtype=torch.float32),
+            src.new_empty(sx.shape, dtype=torch.float32))
+
+
+@torch.library.custom_op("movedepth::warp_images_border_l1_bwd",
+                         mutates_args=(), device_types="cpu")
+def _l1_bwd(src: torch.Tensor, target: torch.Tensor, sx: torch.Tensor,
+            sy: torch.Tensor, grad: torch.Tensor,
+            grad_l1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return warp_images_border_l1_bwd_reference(src, target, sx, sy, grad,
+                                               grad_l1)
+
+
+@_l1_bwd.register_kernel("cuda")
+def _l1_bwd_cuda(src, target, sx, sy, grad, grad_l1):
+    global l1_bwd_launches
+    src, target, sx, sy = (t.contiguous() for t in (src, target, sx, sy))
+    b, r, w, c = src.shape
+    dsx = torch.empty_like(sx)
+    dsy = torch.empty_like(sy)
+    _launch(kernel_library().warp_images_border_l1_bwd, src, target, sx, sy,
+            grad.float().contiguous(), grad_l1.float().contiguous(), dsx,
+            dsy, shape=(b, r, w, sx.shape[1], c))
+    l1_bwd_launches += 1
+    return dsx, dsy
+
+
+@_l1_bwd.register_fake
+def _l1_bwd_fake(src, target, sx, sy, grad, grad_l1):
+    return torch.empty_like(sx), torch.empty_like(sy)
+
+
+def _l1_backward(ctx, grad, grad_l1):
+    """Folds the L1 cotangent into the coordinate gradient in one launch;
+    the kernel recomputes the samples from their taps, so only the inputs
+    are saved (not the (B, K, R, W, C) warped stack)."""
+    if not (ctx.needs_input_grad[2] or ctx.needs_input_grad[3]):
+        return None, None, None, None
+    dsx, dsy = _l1_bwd(*ctx.saved_tensors, grad, grad_l1)
+    return None, None, dsx, dsy
+
+
+_l1_fwd.register_autograd(_l1_backward, setup_context=_border_setup)
 
 
 def warp_images_border(src, sx, sy, target=None):
@@ -220,15 +333,17 @@ def warp_images_border(src, sx, sy, target=None):
     coordinates (align_corners=True pixel space). Returns (B, K, R, W, C)
     float32, ``grid_sample(padding='border', align_corners=True)`` on the
     same coordinates. Differentiable with respect to sx and sy; src carries
-    no gradient on the card. CPU tensors take
-    :func:`warp_images_border_reference`.
+    no gradient. The op ``movedepth::warp_images_border_fwd`` runs
+    :func:`warp_images_border_reference` on CPU tensors and the kernel on
+    CUDA ones; its gradient is ``movedepth::warp_images_border_bwd``.
 
     ``target`` (B, R, W, C) float32, the frame the warps are compared with,
     switches on the L1 epilogue: the return becomes ``(warped, l1)`` with
     l1 (B, K, R, W) float32 = ``mean_c |warped - target|``, computed inside
-    the forward kernel on the card (:class:`WarpImagesBorderL1`) and by
-    :func:`warp_images_border_l1_reference` on the CPU. The target is data:
-    one that requires a gradient raises.
+    the forward kernel on the card and by
+    :func:`warp_images_border_l1_reference` on the CPU (the ops
+    ``movedepth::warp_images_border_l1_fwd`` and ``_l1_bwd``). The target
+    is data: one that requires a gradient raises.
     """
     if src.dim() != 4 or sx.dim() != 4 or sx.shape != sy.shape:
         raise ValueError("expected src (B,R,W,C) and sx, sy (B,K,R,W); got "
@@ -253,12 +368,8 @@ def warp_images_border(src, sx, sy, target=None):
         if target.requires_grad:
             raise ValueError("the L1 target is data and gets no gradient; "
                              "pass target.detach()")
-    if device.type == "cpu":
-        if target is None:
-            return warp_images_border_reference(src, sx, sy)
-        return warp_images_border_l1_reference(src, sx, sy, target)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no warp_images_border for device {device}")
     if target is None:
-        return WarpImagesBorder.apply(src.detach(), sx, sy)
-    return WarpImagesBorderL1.apply(src.detach(), target, sx, sy)
+        return _border_fwd(src.detach(), sx, sy)
+    return _l1_fwd(src.detach(), target, sx, sy)

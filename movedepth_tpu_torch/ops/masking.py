@@ -12,28 +12,38 @@ from movedepth_tpu_torch.ops.image_warp import warp_images_border_reference
 def sample_box(height, width, filter_size, generator=None, device="cuda"):
     """A box position (x0, y0), uniform in [0, W-fw) x [0, R-fh), drawn
     from ``generator`` (torch's default one if None) on ``device``, the
-    card unless the caller asks for the CPU. The JAX package draws it with
-    ``jax.random``; tests inject its draw."""
+    card unless the caller asks for the CPU: two 0-d int64 tensors there,
+    never read on the host, so that a CUDA graph of the step takes them as
+    inputs. The JAX package draws it with ``jax.random``; tests inject its
+    draw."""
     fh, fw = filter_size
     x0 = torch.randint(0, width - fw, (), generator=generator, device=device)
     y0 = torch.randint(0, height - fh, (), generator=generator, device=device)
-    return int(x0), int(y0)
+    return x0, y0
 
 
 def random_image_mask(img, filter_size, box):
     """Zero out one (fh, fw) box at ``box`` = (x0, y0), shared across the
     batch. img: (B, H, W, C). Returns (masked_img, mask), mask 0 inside the
     box and 1 outside, broadcast to img's shape; (img, None) when the box
-    covers the whole image."""
+    covers the whole image. The box is two ints or two 0-d tensors; the
+    mask compares pixel indices with it on the device, so the box is never
+    read on the host."""
     fh, fw = filter_size
     _, h, w, _ = img.shape
     if (fh, fw) == (h, w):
         return img, None
-    x0, y0 = box
-    mask = torch.ones((h, w), dtype=img.dtype, device=img.device)
-    mask[y0:y0 + fh, x0:x0 + fw] = 0.0
-    mask = mask[None, :, :, None].expand(img.shape)
+    x0, y0 = (torch.as_tensor(v, device=img.device) for v in box)
+    xs = torch.arange(w, device=img.device)
+    ys = torch.arange(h, device=img.device)[:, None]
+    inside = (xs >= x0) & (xs < x0 + fw) & (ys >= y0) & (ys < y0 + fh)
+    mask = (~inside).to(img.dtype)[None, :, :, None].expand(img.shape)
     return img * mask, mask
+
+
+def _inv(m):
+    """The inverse without linalg.inv's host read of its error flag."""
+    return torch.linalg.inv_ex(m).inverse
 
 
 def geometric_consistency_mask(depth_ref, K_ref, T_ref2src, depth_src, K_src,
@@ -50,8 +60,7 @@ def geometric_consistency_mask(depth_ref, K_ref, T_ref2src, depth_src, K_src,
     K3_ref, K3_src = K_ref[:, :3, :3], K_src[:, :3, :3]
     pix = pixel_grid(h, w, depth_ref.dtype, depth_ref.device)
 
-    xyz_ref = torch.linalg.inv(K3_ref) @ (pix[None]
-                                          * depth_ref.reshape(b, 1, -1))
+    xyz_ref = _inv(K3_ref) @ (pix[None] * depth_ref.reshape(b, 1, -1))
     ones = torch.ones((b, 1, h * w), dtype=depth_ref.dtype,
                       device=depth_ref.device)
     xyz_src = (T_ref2src @ torch.cat([xyz_ref, ones], 1))[:, :3]
@@ -65,10 +74,9 @@ def geometric_consistency_mask(depth_ref, K_ref, T_ref2src, depth_src, K_src,
     sy = ((gy + 1.0) * 0.5 * (h - 1)).reshape(b, 1, h, w)
     sampled = warp_images_border_reference(depth_src[..., None], sx, sy)
 
-    xyz_src2 = torch.linalg.inv(K3_src) @ (
+    xyz_src2 = _inv(K3_src) @ (
         torch.cat([xy_src, ones], 1) * sampled.reshape(b, 1, -1))
-    xyz_rep = (torch.linalg.inv(T_ref2src)
-               @ torch.cat([xyz_src2, ones], 1))[:, :3]
+    xyz_rep = (_inv(T_ref2src) @ torch.cat([xyz_src2, ones], 1))[:, :3]
     depth_rep = xyz_rep[:, 2].reshape(b, h, w)
     k_xyz_rep = K3_ref @ xyz_rep
     xy_rep = k_xyz_rep[:, :2] / (k_xyz_rep[:, 2:3] + eps)

@@ -144,14 +144,19 @@ def broadcast_models(models: Mapping[str, torch.nn.Module], group=None):
                 t.copy_(part.view_as(t))
 
 
-def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None):
+def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None,
+                     check: bool = True):
     """Average every parameter's ``.grad`` over the ranks: one coalesced
     all-reduce (per gradient dtype), divided by the world size; call it
     after ``backward()`` and before the optimizer step. A parameter whose
     ``.grad`` is None must be None on every rank (every rank runs the same
-    graph): the all-reduce carries one slot a parameter counting the ranks
-    that hold a gradient, and a count other than 0 or the world size
-    raises. No-op without a process group."""
+    graph): with ``check`` the all-reduce carries one slot a parameter
+    counting the ranks that hold a gradient, and a count other than 0 or
+    the world size raises. That check reads the counts on the host, which
+    a CUDA graph's capture forbids: a captured step passes ``check=False``,
+    and the eager warm-up steps before its capture make the check (a
+    replay cannot change which gradients exist). No-op without a process
+    group."""
     if not is_distributed():
         return
     world = dist.get_world_size(group)
@@ -159,19 +164,21 @@ def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None):
               for p in models[name].parameters()]
     for dtype in sorted({p.dtype for p in params}, key=str):
         same = [p for p in params if p.dtype == dtype]
-        present = [p.grad is not None for p in same]
+        slots = len(same) if check else 0
         flat = torch.cat(
             [p.grad.reshape(-1) if p.grad is not None
              else p.new_zeros(p.numel()) for p in same]
-            + [torch.tensor(present, dtype=dtype, device=same[0].device)])
+            + ([torch.tensor([p.grad is not None for p in same], dtype=dtype,
+                             device=same[0].device)] if check else []))
         dist.all_reduce(flat, group=group)
-        counts = flat[-len(same):].tolist()
-        if any(c not in (0, world) for c in counts):
-            raise RuntimeError(
-                "ranks disagree on which parameters have a gradient: "
-                f"{sum(c not in (0, world) for c in counts)} parameters")
-        parts = flat[:-len(same)].div_(world).split([p.numel()
-                                                     for p in same])
+        if check:
+            counts = flat[-slots:].tolist()
+            if any(c not in (0, world) for c in counts):
+                raise RuntimeError(
+                    "ranks disagree on which parameters have a gradient: "
+                    f"{sum(c not in (0, world) for c in counts)} parameters")
+        parts = flat[:flat.numel() - slots].div_(world).split(
+            [p.numel() for p in same])
         held = [(p.grad, part.view_as(p)) for p, part in zip(same, parts)
                 if p.grad is not None]
         torch._foreach_copy_([g for g, _ in held], [v for _, v in held])

@@ -120,6 +120,8 @@ class SyncBatchNorm(nn.modules.batchnorm._BatchNorm):
             var = torch.addcmul(ex2, mean, mean, value=-1)
             if self.track_running_stats:
                 self.num_batches_tracked.add_(1)
+                # momentum None reads the count on the host, which a CUDA
+                # graph's capture forbids; the port's BatchNorms have 0.1
                 m = (self.momentum if self.momentum is not None
                      else 1.0 / float(self.num_batches_tracked))
                 torch._foreach_lerp_(

@@ -80,7 +80,10 @@ def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
 
 def _models_ctx(cfg: Config, device: torch.device):
     if cfg.compute_dtype == "bfloat16" and device.type == "cuda":
-        return torch.autocast("cuda", dtype=torch.bfloat16)
+        # autocast's cache of bf16 weights must stay out of a CUDA graph
+        return torch.autocast(
+            "cuda", dtype=torch.bfloat16,
+            cache_enabled=not torch.cuda.is_current_stream_capturing())
     return contextlib.nullcontext()
 
 
@@ -247,7 +250,8 @@ def forward_mono_infer(models, batch, cfg: Config):
 def sample_draws(cfg: Config, batch_size: int, generator=None,
                  device="cuda", rank: int = 0, world_size: int = 1):
     """The randomness of one training forward: the masked-augmentation box
-    (x0, y0) and the automask tiebreak noise, one (B, H, W, 1) standard
+    (x0, y0), two 0-d tensors on ``device``, and the automask tiebreak
+    noise, one (B, H, W, 1) standard
     normal map per mono scale (none with ``disable_automasking``) and one
     more with ``mask_mvs_auto``, in the order ``forward_train`` uses them.
     ``generator`` (torch's default one if None) must live on ``device``,
@@ -530,9 +534,11 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws,
                                              (h // 3, w // 3), draws["box"])
     with _models_ctx(cfg, dev):
         ref_aug, _ = models["mvs_encoder"](_nchw(masked_img))
+    # inv_ex: linalg.inv reads its error flag on the host, which a CUDA
+    # graph's capture forbids
     depth_mvs, cost_prob, depth_mvs_aug = mvs_depth_two_pass(
         models, ref_match, ref_aug, src_matches, bins, K_p,
-        torch.linalg.inv(K_p), rel, cfg)
+        torch.linalg.inv_ex(K_p).inverse, rel, cfg)
     with _models_ctx(cfg, dev):
         trust_mono = models["mask_cnn"](entropy(cost_prob, dim=1,
                                                 keepdim=True))

@@ -89,12 +89,27 @@ def load_optimizer(folder: str, optimizer, device) -> Optional[int]:
     the step it was saved at; None when the folder has no such file or
     the reference's (the optimizer's state_dict alone, with no step: its
     parameter groups are not the port's), as for a folder of weights
-    alone."""
+    alone.
+
+    The saved groups' hyperparameters replace the live ones, ``capturable``
+    included, which says where Adam keeps its step counts: a file written
+    on the CPU (or before Adam was capturable) has it False, one written
+    on the card True. Each group keeps the live optimizer's value, and the
+    step counts move where it puts them (capturable: float32 on the
+    parameter's device; else on the host)."""
     path = os.path.join(folder, OPTIMIZER_FILE)
     if not os.path.isfile(path):
         return None
     saved = torch.load(path, map_location=device, weights_only=True)
     if "step" not in saved:
         return None
+    capturable = [g["capturable"] for g in optimizer.param_groups]
     optimizer.load_state_dict(saved["optimizer"])
+    for group, live in zip(optimizer.param_groups, capturable):
+        group["capturable"] = live
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(
+                    p.device if live else "cpu", torch.float32)
     return int(saved["step"])

@@ -25,11 +25,18 @@ Checkpoints are reference ``.pth`` folders plus ``adam.pth``
 ``last``. Resuming from a folder with ``adam.pth`` continues the step
 clock: the epoch, the z-guided bins and the learning-rate schedule go on
 where the saved run left off. A reference folder without it starts at step
-0. The multi-step dispatch is not ported (ROADMAP).
+0.
+
+With ``steps_per_dispatch`` K > 1 an epoch runs in groups of K batches
+through ``train.state.make_train_multistep`` (on the card, replays of a
+CUDA graph of one step; a gloo group on the card raises), with the step
+and batch accounting of the single-step loop; the tail of fewer than K
+batches runs as single steps.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Dict, Optional
@@ -162,6 +169,10 @@ class Trainer:
 
         self.optimizer, self.schedule = S.create_optimizer(
             self.models, cfg, self.steps_per_epoch)
+        self.train_multistep = (
+            S.make_train_multistep(self.models, self.optimizer,
+                                   self.schedule, cfg, group)
+            if cfg.steps_per_dispatch > 1 else None)
         self.step = 0  # optimizer steps taken
 
         if cfg.weights_init == "pretrained":
@@ -202,7 +213,7 @@ class Trainer:
         step = C.load_optimizer(folder, self.optimizer, self.device)
         if step is not None:
             self.step = step
-            S.set_schedule_step(self.optimizer, self.schedule, step)
+            self.schedule.set_step(step)
 
     def load_mono_weights(self, folder: str):
         """Warm start of the mono and pose models, BatchNorm statistics
@@ -280,36 +291,93 @@ class Trainer:
         D.barrier(self.group)
         return path
 
+    def _log_step(self, batch, losses, outputs, batch_idx, step, seconds,
+                  use_z):
+        host = self._host_losses(losses, outputs, batch)
+        self.logger.log_time(self.epoch, batch_idx, step, seconds,
+                             host["loss"])
+        self.logger.log_scalars("train", host, step)
+        self.logger.log_images("train", batch, outputs, step)
+        self.validate(use_z, step)
+
+    def _single_step(self, batch, batch_idx, use_z):
+        """One train_step on a host batch, then its logging and snapshot."""
+        cfg = self.cfg
+        t0 = time.time()
+        self._profile_tick()
+        device_batch = self._put(batch)
+        draws = self._draws(batch["color"].shape[0])
+        losses, outputs = S.train_step(
+            self.models, self.optimizer, self.schedule, device_batch, cfg,
+            use_z, draws, self.group)
+        step = self.step
+        self.step += 1
+        if self._log_cadence(batch_idx, step):
+            self._log_step(batch, losses, outputs, batch_idx, step,
+                           time.time() - t0, use_z)
+        if cfg.save_intermediate_models and step % 2000 == 0:
+            self.save(epoch=self.epoch, snapshot_step=step)
+
+    def _dispatch(self, group, batch_idx, use_z):
+        """K = len(group) steps in one call of the multi-step dispatch.
+        The losses are read at the log events after it; there the image
+        outputs and Garg metrics come from a no-grad ``forward_train`` of
+        the models in eval mode on one more draw (the dispatch does not
+        materialize them), and a ``save_intermediate_models`` snapshot
+        holds the end-of-group state, up to K-1 steps past its label, as
+        in the JAX package."""
+        cfg = self.cfg
+        k = len(group)
+        t0 = time.time()
+        device_batches = [self._put(b) for b in group]
+        draws = [self._draws(b["color"].shape[0]) for b in group]
+        losses = self.train_multistep(device_batches, draws, use_z)
+        seconds = (time.time() - t0) / k
+        start = self.step
+        self.step += k
+        for s in range(k):
+            step = start + s
+            if self._log_cadence(batch_idx + s, step):
+                outputs = self._train_outputs(device_batches[s], use_z)
+                self._log_step(group[s],
+                               {key: v[s] for key, v in losses.items()},
+                               outputs, batch_idx + s, step, seconds, use_z)
+            if cfg.save_intermediate_models and step % 2000 == 0:
+                self.save(epoch=self.epoch, snapshot_step=step)
+
+    @torch.no_grad()
+    def _train_outputs(self, device_batch, use_z):
+        for m in self.models.values():
+            m.eval()
+        _, _, outputs = P.forward_train(
+            self.models, device_batch, self.cfg, use_z,
+            self._draws(device_batch["color"].shape[0]), self.group)
+        return outputs
+
     def run_epoch(self):
+        """One epoch: single train_steps, or with ``steps_per_dispatch`` K
+        > 1 groups of K batches through the multi-step dispatch and a tail
+        of single steps (``profile_steps`` traces single steps only)."""
         cfg = self.cfg
         use_z = self.epoch > cfg.ztrans_start_epc
+        k = cfg.steps_per_dispatch
         t_epoch = time.perf_counter()
         n = 0
         batches = self.train_loader.epoch(self.epoch)
+        it = (b for _, b in zip(range(self.steps_per_epoch), batches))
         try:
-            for batch_idx, batch in zip(range(self.steps_per_epoch),
-                                        batches):
-                t0 = time.time()
-                self._profile_tick()
-                device_batch = self._put(batch)
-                draws = self._draws(batch["color"].shape[0])
-                losses, outputs = S.train_step(
-                    self.models, self.optimizer, self.schedule, device_batch,
-                    cfg, use_z, draws, self.group)
-                step = self.step
-                self.step += 1
-                n += 1
-                if self._log_cadence(batch_idx, step):
-                    host = self._host_losses(losses, outputs, batch)
-                    self.logger.log_time(self.epoch, batch_idx, step,
-                                         time.time() - t0, host["loss"])
-                    self.logger.log_scalars("train", host, step)
-                    self.logger.log_images("train", batch, outputs, step)
-                    self.validate(use_z, step)
-                if cfg.save_intermediate_models and step % 2000 == 0:
-                    self.save(epoch=self.epoch, snapshot_step=step)
-                if n == 1:
-                    t_first = time.perf_counter()
+            while True:
+                group = list(itertools.islice(it, k))
+                if not group:
+                    break
+                if len(group) == k > 1:
+                    self._dispatch(group, n, use_z)
+                else:  # k = 1, or the tail of fewer than k batches
+                    for i, batch in enumerate(group):
+                        self._single_step(batch, n + i, use_z)
+                if n == 0:
+                    t_first, n_first = time.perf_counter(), len(group)
+                n += len(group)
         finally:
             batches.close()
         if self.device.type == "cuda":
@@ -317,9 +385,11 @@ class Trainer:
         if n and self.rank == 0:
             t_end = time.perf_counter()
             ms = (t_end - t_epoch) * 1e3 / n
-            # a process's first step also autotunes cuDNN
-            warm = (f", {(t_end - t_first) * 1e3 / (n - 1):.1f} after the "
-                    "first" if n > 1 else "")
+            # a process's first step also autotunes cuDNN (the first
+            # dispatch, and captures its graph)
+            warm = (f", {(t_end - t_first) * 1e3 / (n - n_first):.1f} "
+                    f"after the first{f' {n_first}' if n_first > 1 else ''}"
+                    if n > n_first else "")
             print(f"epoch {self.epoch}: {n} steps, {ms:.1f} ms/step wall"
                   f"{warm} (data loading, logging and validation included)",
                   flush=True)

@@ -160,7 +160,7 @@ def test_sweep_warp_kernels_match_plain_version(device, dtype):
 
 
 def _check_dsrc(src, sx, sy, seed=1):
-    """The sweep warp's source gradient through SweepWarp's backward against
+    """The sweep warp's source gradient through its op's backward against
     the plain version's autograd in float32 on the same (rounded) inputs:
     within 1e-5 of dsrc's range, plus one bf16 ulp in bfloat16. Returns
     the backward kernel's launches."""
@@ -764,3 +764,181 @@ def test_all_reduce_grads_on_the_card(gloo_group):
     for k, m in models.items():
         assert all(torch.equal(p, q) for p, q in zip(m.parameters(),
                                                      before[k]))
+
+
+def _multistep_setup(device, **kw):
+    cfg = Config(height=64, width=96, num_depth_bins=8,
+                 compute_dtype="float32", kernel_l1=True, **kw)
+    models = build_models(cfg, "cpu", torch.Generator().manual_seed(0))
+    with torch.no_grad():  # a few-pixel motion: no automask near-ties
+        for p in models["pose"].net[3].parameters():
+            p.mul_(40.0)
+    gen = torch.Generator(device).manual_seed(0)
+    batches = [P.synthetic_batch(cfg, 2, seed=s, device=device)
+               for s in (1, 2)]
+    draws = [P.sample_draws(cfg, 2, gen, device) for _ in batches]
+    return cfg, models, batches, draws
+
+
+def test_multistep_graph_matches_eager_steps(device):
+    """steps_per_dispatch on the card: one dispatch of 2 replays of the
+    captured step against 2 eager train_steps from one state (float32,
+    64x96, 8 bins, kernel_l1): step 1's losses within 1e-5 relative, step
+    2's total loss within 5e-3 and the parameters after both within rtol
+    5e-2 / atol 1e-3 (the JAX test's loose tier: row 3's atomics sum in
+    another order on every run); Adam is capturable; a second dispatch
+    counts its launches per replay (the wrappers' counters do not run in
+    a replay); the gradients left in .grad are the graph's."""
+    from movedepth_tpu_torch.ops import image_warp as IW
+    from movedepth_tpu_torch.train import state as S
+    cfg, cpu_models, batches, draws = _multistep_setup(device)
+    runs = {}
+    for graphed in (False, True):
+        models = {k: copy.deepcopy(m).to(device)
+                  for k, m in cpu_models.items()}
+        opt, sched = S.create_optimizer(models, cfg)
+        assert all(g["capturable"] for g in opt.param_groups)
+        if graphed:
+            multi = S.make_train_multistep(models, opt, sched, cfg)
+            losses = multi(batches, draws, True)
+        else:
+            steps = [S.train_step(models, opt, sched, b, cfg, True, d)[0]
+                     for b, d in zip(batches, draws)]
+            losses = {k: torch.stack([s[k] for s in steps])
+                      for k in steps[0]}
+        assert sched.last_epoch == 2
+        runs[graphed] = (losses, models)
+    (want, eager), (got, models) = runs[False], runs[True]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k][0].item(), want[k][0].item(),
+                                   rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["loss"][1].item(), want["loss"][1].item(),
+                               rtol=5e-3)
+    for name in eager:
+        for a, b in zip(models[name].parameters(),
+                        eager[name].parameters()):
+            torch.testing.assert_close(a, b, rtol=5e-2, atol=1e-3)
+    counts = (SW.warp_launches, SW.warp_bwd_launches, IW.l1_launches,
+              IW.l1_bwd_launches)
+    graph = multi.graphs[True]
+    multi(batches, draws, True)
+    torch.cuda.synchronize()
+    assert (SW.warp_launches - counts[0], SW.warp_bwd_launches - counts[1],
+            IW.l1_launches - counts[2], IW.l1_bwd_launches - counts[3]) \
+        == (2, 2, 4, 4)
+    assert all(p.grad is g for p, g in zip(graph.params, graph.grads))
+
+
+@pytest.mark.parametrize("written", ["cpu", "cuda"])
+def test_multistep_resumes_from_either_device(device, written, tmp_path):
+    """A resume on the card from an ``adam.pth`` written by a step on the
+    CPU (groups not capturable, the step counts on the host) or on the
+    card, then a dispatch of 2 graphed steps against 2 eager steps from
+    the same resume: Adam is capturable again with its step counts on the
+    card, step 1's losses within 1e-5 relative, step 2's total loss within
+    5e-3 (the tiers of test_multistep_graph_matches_eager_steps)."""
+    from movedepth_tpu_torch.train import checkpoints as C
+    from movedepth_tpu_torch.train import state as S
+    cfg, cpu_models, batches, draws = _multistep_setup(device)
+    models = {k: copy.deepcopy(m).to(written) for k, m in cpu_models.items()}
+    opt, sched = S.create_optimizer(models, cfg)
+    draw = {"box": tuple(t.to(written) for t in draws[0]["box"]),
+            "noise": [n.to(written) for n in draws[0]["noise"]]}
+    S.train_step(models, opt, sched, {k: v.to(written) for k, v in
+                                      batches[0].items()}, cfg, True, draw)
+    folder = C.save_checkpoint(str(tmp_path), models, opt, sched, 1, cfg,
+                               last=True)
+    runs = {}
+    for graphed in (False, True):
+        resumed = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
+        ropt, rsched = S.create_optimizer(resumed, cfg)
+        rsched.set_step(C.load_optimizer(folder, ropt, device))
+        assert all(g["capturable"] for g in ropt.param_groups)
+        assert all(s["step"].device.type == "cuda"
+                   for s in ropt.state.values())
+        if graphed:
+            runs[graphed] = S.make_train_multistep(resumed, ropt, rsched,
+                                                   cfg)(batches, draws, True)
+        else:
+            steps = [S.train_step(resumed, ropt, rsched, b, cfg, True, d)[0]
+                     for b, d in zip(batches, draws)]
+            runs[graphed] = {k: torch.stack([s[k] for s in steps])
+                             for k in steps[0]}
+        assert rsched.last_epoch == 3
+    got, want = runs[True], runs[False]
+    for k in want:
+        np.testing.assert_allclose(got[k][0].item(), want[k][0].item(),
+                                   rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["loss"][1].item(), want["loss"][1].item(),
+                               rtol=5e-3)
+
+
+def test_capturable_adam_matches_float_adam(device):
+    """The card's Adam (capturable, a tensor rate a group written in place
+    by the schedule) against torch's default Adam with float rates under
+    MultiStepLR, across two milestones: the same rates, and parameters
+    within float32 rounding of the bias corrections."""
+    from movedepth_tpu_torch.train import state as S
+    cfg = Config(num_epochs=6, scheduler_step_size=2, lr_fac=0.5)
+    gen = torch.Generator().manual_seed(0)
+    models = {"mono_encoder": torch.nn.Linear(5, 3).to(device),
+              "reg3d": torch.nn.Linear(5, 3).to(device)}
+    ref = copy.deepcopy(models)
+    opt, sched = S.create_optimizer(models, cfg, steps_per_epoch=3)
+    ref_opt = torch.optim.Adam(
+        [{"params": list(ref["mono_encoder"].parameters()),
+          "lr": cfg.learning_rate},
+         {"params": list(ref["reg3d"].parameters()),
+          "lr": cfg.learning_rate * cfg.lr_fac}], eps=1e-8)
+    ref_sched = torch.optim.lr_scheduler.MultiStepLR(
+        ref_opt, S.lr_milestones(cfg, 3), gamma=0.1)
+    for _ in range(14):
+        x = torch.randn(4, 5, generator=gen).to(device)
+        for ms, o in ((models, opt), (ref, ref_opt)):
+            o.zero_grad()
+            sum(m(x).square().sum() for m in ms.values()).backward()
+            o.step()
+        sched.step()
+        ref_sched.step()
+        np.testing.assert_allclose(
+            [float(g["lr"]) for g in opt.param_groups],
+            ref_sched.get_last_lr(), rtol=1e-6)
+        for a, b in zip(models.values(), ref.values()):
+            for p, q in zip(a.parameters(), b.parameters()):
+                torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-7)
+
+
+def test_multistep_refuses_gloo_on_the_card(gloo_group):
+    """gloo collectives cannot be captured: steps_per_dispatch > 1 with a
+    gloo group on the card raises, rather than taking eager steps."""
+    from movedepth_tpu_torch.train import state as S
+    cfg, cpu_models, _, _ = _multistep_setup("cuda")
+    models = {k: m.cuda() for k, m in cpu_models.items()}
+    opt, sched = S.create_optimizer(models, cfg)
+    with pytest.raises(ValueError, match="nccl"):
+        S.make_train_multistep(models, opt, sched, cfg, gloo_group)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_export_on_the_card_matches_live_forward(device, dtype, tmp_path):
+    """cli/export_model on the card (64x96, 8 bins): the saved and loaded
+    MVS program launches the cost-volume kernel once a call and gives the
+    live forward's outputs (bfloat16: its autocast regions are part of
+    the program)."""
+    from movedepth_tpu_torch.cli import export_model as EM
+    cfg = Config(height=64, width=96, num_depth_bins=8, compute_dtype=dtype)
+    models = build_models(cfg, device)
+    program = EM.build_export(cfg, models, False, 2, device)
+    torch.export.save(program, tmp_path / "p.pt2")
+    loaded = torch.export.load(tmp_path / "p.pt2").module()
+    inputs = EM.example_inputs(cfg, False, 2, device)
+    with torch.no_grad():
+        before = SW.launches
+        got = loaded(*inputs)
+        torch.cuda.synchronize()
+        assert SW.launches == before + 1
+        want = EM.ServingForward(models, cfg, False)(*inputs)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (2, 64, 96)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)

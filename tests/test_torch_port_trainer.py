@@ -243,12 +243,14 @@ def test_trainer_scratch_init_does_not_search(kitti_tree, monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported(kitti_tree):
+    """Reg2D (fewer than 8 bins) and the deformable FPN head are not
+    ported; steps_per_dispatch > 1 is (tests/test_torch_port_multistep.py
+    trains with it)."""
     root, splits = kitti_tree
-    trainer = Trainer(make_cfg(root, steps_per_dispatch=2,
-                               model_name="t_multi"), split_dir=splits,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        trainer.train()
+    for kw in (dict(num_depth_bins=4), dict(dcn=True)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Trainer(make_cfg(root, model_name="t_refused", **kw),
+                    split_dir=splits, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(make_cfg(root), split_dir=splits)
