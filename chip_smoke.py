@@ -74,9 +74,10 @@ without printing the final ok line:
    passes each (samples/s, ms/batch, the host's CPU count); the native
    samples against the PIL samples of the same indices, each read timed
    one sample at a time.
-10b. the train CLI for two epochs of 10 steps at batch 12 with validation
-   at its default cadence, with --no-native_loader and with the native
-   loader: wall ms/step of each epoch against phase 9b's train_step.
+10b. the train CLI's entry point in this process for one epoch of 10
+   steps at batch 12 with validation at its default cadence, with
+   --no-native_loader and with the native loader: wall ms/step of the
+   epoch against phase 9b's train_step.
 11. the stage ablations of the sweep kernel at batch 128 (``full`` bit for
    bit the shipped kernel), and the public wrapper against the bare launch.
 12. data-parallel training, this slice's path. 12a: ``torchrun --standalone
@@ -90,7 +91,8 @@ without printing the final ok line:
    at batch 4 from the same weights, batch and draws: the losses within the
    train parity gates, each parameter's Adam update under the per-leaf rule
    of tests/test_sharding.py, the ranks' parameters identical, rows 2-5
-   launched in each rank; each rank's step and gradient all-reduce times.
+   launched in each rank; one more step and one gradient all-reduce
+   timed in each rank.
    12c: in this process, a world-1 nccl group: the bfloat16 batch-12
    train_step with the group (SyncBatchNorm, global masked means, gradient
    all-reduce) and without it, in turns, and the gradient all-reduce alone.
@@ -108,6 +110,23 @@ without printing the final ok line:
    under a world-1 nccl group, the memory the graph holds, launches of
    rows 2, 3 and 4b per replay (the train CLI's dispatch runs in phase
    10's resume).
+15. the training variants, this slice's path. 15a: Reg2D (4 bins) and the
+   DCN head at 640x192, ResNet18: forward_infer_fused at batch 1 and one
+   float32 train_step at batch 2, card against CPU under phase 4's and
+   phase 8's gates, their launches; rows 1-3 at D = 4 against their plain
+   versions, and timed. 15b: bfloat16 parameter storage in the bfloat16
+   kernel_l1 step at batch 12: the first step's losses against float32
+   storage, the type of every parameter, gradient, Adam state and
+   BatchNorm statistic, ms/step and peak memory in turns. 15c:
+   rematerialization at batch 32 ("full", "mvs", none; cuDNN's heuristic
+   algorithms, as the trainer runs a rematerialized step): step 1's losses, gradients and BatchNorm
+   statistics against the plain step, launches, ms/step and peak memory
+   in turns, and the remat step with bfloat16 parameters as a CUDA graph
+   against two eager steps from each replay's state (losses, parameters,
+   buffers and Adam moments). 15d: robust_train's
+   offsets through ``Loader.epoch``, native against PIL; the train CLI
+   with --robust_train --param_dtype bfloat16 --num_depth_bins 4 --dcn
+   (its start-up lines) and a resume from ``last``.
 
 After each phase a ``[time]`` line gives the seconds since the start.
 
@@ -929,8 +948,8 @@ def phase_throughput(cpu_models, card):
     models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
     torch.backends.cudnn.benchmark = True
     kernel = P.sweep_warp_corr
-    runs = [(128, 10, "kernel"), (128, 10, "plain"), (128, 10, "kernel"),
-            (128, 10, "plain"), (1, 50, "kernel")]
+    runs = [(128, 6, "kernel"), (128, 6, "plain"), (128, 6, "kernel"),
+            (128, 6, "plain"), (1, 30, "kernel")]
     batches = {bsz: P.synthetic_batch(cfg.replace(frame_ids=cfg.matching_ids),
                                       bsz, seed=1, device="cuda")
                for bsz in (128, 1)}  # one numpy batch of 128 takes seconds
@@ -1708,6 +1727,37 @@ def _train_cli(args, timeout, torchrun=False):
         raise RuntimeError(f"the train CLI exited {proc.returncode}:\n"
                            + proc.stderr[-4000:])
     log(f"[cli] exit 0 after {time.perf_counter() - t0:.1f} s")
+    return _cli_results(lines)
+
+
+def _train_cli_here(args):
+    """The train CLI's entry point (``cli.train.main``) in this process,
+    with every launch count set to 0 first: no process start, and the
+    kernels and cuDNN's autotuning of earlier runs stay. Returns what
+    ``_train_cli`` returns."""
+    import contextlib
+    import gc
+    import io
+    import torch
+    from movedepth_tpu_torch.cli import train as cli_train
+    _zero_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_train.main(args)
+    gc.collect()  # the trainer's models and graphs
+    torch.cuda.empty_cache()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[cli]   {line}")
+    log(f"[cli] cli.train.main returned after "
+        f"{time.perf_counter() - t0:.1f} s")
+    return _cli_results(lines)
+
+
+def _cli_results(lines):
+    """(lines, {epoch: (steps, wall ms/step, wall ms/step after the first
+    step or None)}, kernel launches) of a train CLI's output."""
     epochs = {int(m.group(1)): (int(m.group(2)), float(m.group(3)),
                                 float(m.group(4)) if m.group(4) else None)
               for m in (re.match(r"epoch (\d+): (\d+) steps, ([\d.]+) "
@@ -1816,31 +1866,34 @@ def _write_loader_tree(root):
     return splits
 
 
-def phase_loader(root, card):
+def phase_loader(root, card, rt=False, passes=2):
     """Phase 10a: the train loader on this host. ``Loader.epoch`` over the
     train dataset of LOADER_LINES lines at the shipped batch 12, 640x192,
-    frame_ids (0, -1, 1), flips and jitter, ``cfg.num_workers`` threads:
+    frame_ids (0, -1, 1), flips and jitter (with ``rt``, phase 15d, also
+    robust_train's random frame offsets), ``cfg.num_workers`` threads:
     the PIL path and the C++ loader in turns, two passes each; then the
     native samples against the PIL samples of the same indices under the
     JAX package's bounds (colour max < 0.06; jittered colour max < 0.08,
     mean < 0.01), each sample's two reads timed one after the other from
-    this thread. Returns {path: [samples/s of each pass]}."""
+    this thread; every native read made by the C++ loader. ``passes``
+    passes a path. Returns {path: [samples/s of each pass]}."""
     import numpy as np
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch.data.kitti import KITTIRawDataset
     from movedepth_tpu_torch.data.loader import Loader
 
     cfg = Config()
+    tag = "[loader-rt]" if rt else "[loader]"
     files = [f"{DRIVE} {i} l" for i in range(1, LOADER_LINES + 1)]
     sets = {label: KITTIRawDataset(root, files, cfg.height, cfg.width,
                                    cfg.frame_ids, is_train=True,
-                                   seed=cfg.seed, native=native)
+                                   seed=cfg.seed, native=native, rt=rt)
             for label, native in (("PIL", False), ("native", True))}
-    log(f"[loader] {sets['native'].native.describe()}; os.cpu_count() "
+    log(f"{tag} {sets['native'].native.describe()}; os.cpu_count() "
         f"{os.cpu_count()}, sched_getaffinity {len(os.sched_getaffinity(0))}"
         f"; {cfg.num_workers} loader threads; {card}")
     rates = {label: [] for label in sets}
-    for label in ("PIL", "native") * 2:
+    for label in ("PIL", "native") * passes:
         loader = Loader(sets[label], cfg.batch_size,
                         num_workers=cfg.num_workers, seed=cfg.seed)
         t0 = time.perf_counter()
@@ -1852,10 +1905,10 @@ def phase_loader(root, card):
         if batches != LOADER_LINES // cfg.batch_size:
             raise RuntimeError(f"{label}: {batches} batches")
         rates[label].append(n / dt)
-        log(f"[loader] {label}: {n} samples in {batches} batches, {dt:.3f} "
+        log(f"{tag} {label}: {n} samples in {batches} batches, {dt:.3f} "
             f"s: {n / dt:.2f} samples/s, {dt * 1e3 / batches:.1f} ms/batch")
     spread = {k: (max(v) - min(v)) / min(v) for k, v in rates.items()}
-    log(f"[loader] samples/s PIL {rates['PIL']}, native {rates['native']}; "
+    log(f"{tag} samples/s PIL {rates['PIL']}, native {rates['native']}; "
         f"native / PIL {np.mean(rates['native']) / np.mean(rates['PIL']):.3f}"
         f"; pass-to-pass spread PIL {spread['PIL']:.1%}, native "
         f"{spread['native']:.1%}")
@@ -1876,42 +1929,47 @@ def phase_loader(root, card):
             jit_max = max(jit_max, float(diff.max()))
             jit_mean = max(jit_mean, float(diff.mean()))
     n = LOADER_LINES // 10
-    log(f"[loader] one sample at a time from this thread (the C++ loader "
+    log(f"{tag} one sample at a time from this thread (the C++ loader "
         f"spreads a sample over 3 threads of its own), {n} samples: PIL "
         f"{serial['PIL'] * 1e3 / n:.1f} ms/sample, native "
         f"{serial['native'] * 1e3 / n:.1f} ms/sample")
-    log(f"[loader] native against PIL on {n} samples: "
+    log(f"{tag} native against PIL on {n} samples: "
         f"colour max {colour:.4f} (< 0.06); {jittered} jittered: max "
         f"{jit_max:.4f} (< 0.08), worst mean {jit_mean:.5f} (< 0.01)")
     if not jittered or colour >= 0.06 or jit_max >= 0.08 or jit_mean >= 0.01:
         raise RuntimeError("the native samples disagree with the PIL ones")
+    made = sets["native"].native_items
+    log(f"{tag} the C++ loader made {made} samples")
+    if made != passes * LOADER_LINES + n:
+        raise RuntimeError(f"{tag} {made} native samples, expected "
+                           f"{passes * LOADER_LINES + n}: some took the PIL "
+                           "path")
     return rates
 
 
 def phase_loader_cli(root, splits, l1_ms, card):
-    """Phase 10b: the train CLI for epochs of CLI_STEPS steps at batch
-    12, 640x192, bfloat16, --kernel_l1, validation at its default cadence
-    (the first step of an epoch), with --no-native_loader and with the
-    default native loader; wall ms/step of each epoch (whole, and after
-    its first step) against phase 9b's train_step. The first epoch's
-    later steps read batches the loader queued during the process's first
-    step (13-17 s of cuDNN autotuning); the second epoch's loader starts
-    empty, as in a long run."""
+    """Phase 10b: the train CLI's entry point in this process (phase 10
+    runs it as a process of its own) for one epoch of CLI_STEPS steps at
+    batch 12, 640x192, bfloat16, --kernel_l1, validation at its default
+    cadence (the first step of an epoch), with --no-native_loader and with
+    the default native loader; wall ms/step of the epoch (whole, and after
+    its first step) against phase 9b's train_step. cuDNN has tuned these
+    shapes in earlier phases, so the first step does not give the loader
+    seconds to queue batches, as a new process's first step does."""
     walls = {}
     for label, extra in (("PIL", ["--no-native_loader"]), ("native", [])):
         log_dir = os.path.join(root, f"log_{label}")
-        lines, epochs, launches = _train_cli(
+        lines, epochs, launches = _train_cli_here(
             ["--data_path", root, "--log_dir", log_dir, "--model_name",
              "loader", "--split", "loader", "--splits_dir", splits,
              "--kernel_l1", "--weights_init", "scratch", "--num_epochs",
-             "2", *extra], 480)
+             "1", *extra])
         want = ("data: PIL loader" if label == "PIL"
                 else "data: native loader, route ")
         if not any(ln.startswith(want) for ln in lines):
             raise RuntimeError(f"{label}: the CLI did not say {want!r}")
-        if {e: n for e, (n, _, _) in epochs.items()} != {0: CLI_STEPS,
-                                                        1: CLI_STEPS}:
-            raise RuntimeError(f"{label}: expected two epochs of "
+        if {e: n for e, (n, _, _) in epochs.items()} != {0: CLI_STEPS}:
+            raise RuntimeError(f"{label}: expected one epoch of "
                                f"{CLI_STEPS} steps: {epochs}")
         if not launches.get("warp_images_border_l1"):
             raise RuntimeError(f"{label}: no L1 kernel launches {launches}")
@@ -2029,7 +2087,7 @@ def _ddp_rank(rank, workdir):
     """A rank of phase 12b (a child process): one float32 train_step of
     DDP_ROWS rows of the spec's batch with synchronized BatchNorm, global
     masked means and the gradient all-reduce over gloo on the shared card;
-    then 3 more steps and 3 gradient all-reduces, each timed alone."""
+    then one more step and one gradient all-reduce, each timed alone."""
     import torch
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
@@ -2070,19 +2128,14 @@ def _ddp_rank(rank, workdir):
     if rank == 0:
         out["grads"] = {n: {k: p.grad.to("cpu", copy=True) for k, p in
                             m.named_parameters()} for n, m in models.items()}
-    step_s, reduce_s = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        S.train_step(models, opt, sched, batch, cfg, False, draws, group)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    for _ in range(3):
-        t0 = time.perf_counter()
-        D.all_reduce_grads(models, group)
-        torch.cuda.synchronize()
-        reduce_s.append(time.perf_counter() - t0)
-    out.update(step_ms=[t * 1e3 for t in step_s],
-               reduce_ms=[t * 1e3 for t in reduce_s])
+    t0 = time.perf_counter()
+    S.train_step(models, opt, sched, batch, cfg, False, draws, group)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    D.all_reduce_grads(models, group)
+    torch.cuda.synchronize()
+    out.update(step_ms=[(t1 - t0) * 1e3],
+               reduce_ms=[(time.perf_counter() - t1) * 1e3])
     torch.save(out, os.path.join(workdir, f"out{rank}.pt"))
     D.barrier(group)
     torch.distributed.destroy_process_group()
@@ -2439,8 +2492,7 @@ def _multistep_equality(train_models, cfg, batches, draws):
                     / sum(float(b.norm() ** 2) for b in want[n])) ** 0.5
                 for n in want}
 
-    def rel(a, b):
-        return abs(float(a) / float(b) - 1)
+    rel = _rel  # a loss of exactly 0 on both sides is equal, not a crash
 
     models, eager_losses, grads1 = eager()
     _, spread_losses, spread_grads = eager()
@@ -2482,6 +2534,10 @@ def _multistep_equality(train_models, cfg, batches, draws):
                             draws[i])[0]
         step = multi(batches[i:i + 1], draws[i:i + 1], True)
         synced.append(max(rel(step[key][0], want[key]) for key in want))
+        zeros = [key for key in want if float(want[key]) == 0.0]
+        if zeros:
+            log(f"[multistep] replay {i + 1}: eager losses exactly 0: {zeros}"
+                f", graphed {[float(step[key][0]) for key in zeros]}")
         if i == 0:  # a dispatch of 1 from the first state: step 1's grads
             gaps = grad_rel({n: [p.grad for p in m.parameters()]
                              for n, m in graphed[0].items()}, grads1)
@@ -2602,6 +2658,589 @@ def phase_multistep(train_models, card):
     return launches
 
 
+# ------------------------------------------------------------------ phase 15
+
+REMAT_BATCH = 32  # phase 15c: above the shipped remat_batch_threshold, 24
+
+
+def _rel(a, b):
+    """|a - b| / |b|, and 0 for a == b == 0."""
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def _spread_reg2d(models):
+    """At random init Reg2D's 4-bin softmax is flat (its logits vary by
+    ~1e-5 across the bins), so the decode's argmax is round-off and the
+    card and the CPU pick different windows. Gains on the matching feature
+    (x10) and on the prob head (x100) spread it, as the pose head's gain
+    gives motion."""
+    import torch
+    with torch.no_grad():
+        models["mvs_encoder"].out.weight.mul_(10.0)
+        models["reg3d"].prob.weight.mul_(100.0)
+
+
+def phase_variant_paths(card):
+    """15a: Reg2D (num_depth_bins 4) and the DCN head (dcn), the shipped
+    config otherwise (640x192, ResNet18): forward_infer_fused at batch 1,
+    float32 on the card against the CPU under phase 4's gates (pose head
+    x1e-2) with row 1 launched once; one float32 train_step at batch 2 on
+    the card against the CPU under phase 8's gates (pose head x40), and
+    rows 2-5 launched as in phase 8. Returns {variant: launches}."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import build_models
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+
+    out = {}
+    for tag, kw in (("reg2d", dict(num_depth_bins=4)), ("dcn",
+                                                        dict(dcn=True))):
+        cfg = Config(compute_dtype="float32", **kw)
+        base = build_models(cfg, "cpu", torch.Generator().manual_seed(0))
+        if tag == "reg2d":
+            _spread_reg2d(base)
+        cpu_models = {k: copy.deepcopy(m) for k, m in base.items()}
+        _temper_pose_head(cpu_models)
+        models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
+        batch = P.synthetic_batch(cfg, 1, seed=0, device="cpu")
+        want = P.forward_infer_fused(cpu_models, batch, cfg)
+        before = SW.launches
+        got = P.forward_infer_fused(models, P.as_batch(batch, "cuda"), cfg)
+        torch.cuda.synchronize()
+        infer = SW.launches - before
+        if infer != 1:
+            raise RuntimeError(f"15a {tag}: sweep_warp_corr launched {infer} "
+                               "times in one forward, expected 1")
+        _check_gates(f"[15a {tag}]", got, want)
+        if got["cost_prob"].shape[1] != cfg.num_depth_bins:
+            raise RuntimeError(f"15a {tag}: {got['cost_prob'].shape}")
+
+        _boost_pose_head(base)
+        cpu_models = {k: copy.deepcopy(m) for k, m in base.items()}
+        one_thread = {k: copy.deepcopy(m) for k, m in base.items()}
+        models = {k: copy.deepcopy(m).cuda() for k, m in base.items()}
+        batch = P.synthetic_batch(cfg, 2, seed=0, device="cpu")
+        draws = P.sample_draws(cfg, 2, torch.Generator().manual_seed(0),
+                               device="cpu")
+        want, seconds = _f32_step(cfg, cpu_models, batch, draws)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            _, seconds1 = _f32_step(cfg, one_thread, batch, draws)
+        finally:
+            torch.set_num_threads(threads)
+        log(f"[15a {tag}] CPU float32 train_step at batch 2: {seconds:.1f} s "
+            f"on {threads} threads, {seconds1:.1f} s on 1")
+        _zero_launch_counts()
+        got, _ = _f32_step(cfg, models, P.as_batch(batch, "cuda"),
+                           {"box": draws["box"],
+                            "noise": [n.cuda() for n in draws["noise"]]})
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        log(f"[15a {tag}] kernel launches of one card train_step: "
+            f"{launches}")
+        if list(launches.values()) != [1, 1, 2, 2, 0, 0]:
+            raise RuntimeError(f"15a {tag}: expected sweep_warp 1 + 1 and "
+                               "warp_images_border 2 + 2")
+        _card_vs_cpu(f"15a {tag}", got, want, models, cpu_models,
+                     _grad_rel(one_thread, cpu_models), threads)
+        out[tag] = dict(launches, sweep_warp_corr=infer)
+    return out
+
+
+def phase_kernels_d4(card):
+    """15a, the kernels at Reg2D's 4 planes: row 1 (batch 16, the
+    prior-scale shape of phase 3) and rows 2 and 3 (batch 12, phase 7's
+    shape, its exact-bound and out-of-frame coordinates) against their
+    plain versions under phase 3's and phase 7's gates, in float32 and
+    bfloat16; device ms of each bare bfloat16 launch (row 3: the whole
+    backward) beside its bound. Returns {kernel: (ms, bound ms)}."""
+    import torch
+    from movedepth_tpu_torch.ops import sweep_warp as SW
+
+    d = 4
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(6)
+    s = KERNEL_SHAPE
+    b, r, w, c, g = s["B"], s["R"], s["W"], s["C"], s["G"]
+    src = torch.randn(b, r, w, c, generator=gen).to(dev)
+    ref = torch.randn(b, r, w, c, generator=gen).to(dev)
+    sx, sy = (t.to(dev) for t in _sweep_coords(b, r, w, d, gen))
+    _check_kernel(src, ref, sx, sy, g)
+    out1 = torch.empty((b, d, r, w, g), dtype=torch.bfloat16, device=dev)
+    ms1 = device_ms(_bare(SW.kernel_library().sweep_warp_corr_bf16,
+                          src.bfloat16(), ref.bfloat16(), sx, sy, out1, b, r,
+                          w, d, r, c, g))
+    bound1 = bound(*sweep_corr_work(b, r, w, c, d, r, g, 2))["bound_ms"]
+
+    t = TRAIN_SHAPE
+    b = t["B"]
+    x, y = _sweep_coords(b, r, w, d, gen)
+    _edge_cases(x, y, w, r)
+    x, y = x.to(dev), y.to(dev)
+    src = torch.randn(b, r, w, c, generator=gen).to(dev)
+    grad = torch.randn((b, d, r, w, c), generator=gen).to(dev)
+    _within("sweep_warp float32 forward, D=4", SW.sweep_warp(src, x, y),
+            SW.sweep_warp_reference(src, x, y))
+    _within("sweep_warp bfloat16 forward, D=4",
+            SW.sweep_warp(src.bfloat16(), x, y),
+            SW.sweep_warp_reference(src.bfloat16().float(), x, y), bf16=True)
+    _dsrc_check("sweep_warp float32 dsrc, D=4", src, x, y, grad)
+    _dsrc_check("sweep_warp bfloat16 dsrc, D=4", src, x, y, grad, True)
+    lib = SW.warp_library()
+    out2 = torch.empty((b, d, r, w, c), dtype=torch.bfloat16, device=dev)
+    ms2 = device_ms(_bare(lib.sweep_warp_fwd_bf16, src.bfloat16(), x, y,
+                          out2, b, r, w, d, r, c))
+    dsrc32 = torch.zeros((b, r, w, c), device=dev)
+    dsrc16 = torch.empty((b, r, w, c), dtype=torch.bfloat16, device=dev)
+    launch = _bare(lib.sweep_warp_bwd_bf16, grad.bfloat16(), x, y, dsrc32, b,
+                   r, w, d, r, c)
+
+    def whole():
+        dsrc32.zero_()
+        launch()
+        dsrc16.copy_(dsrc32)
+    ms3 = device_ms(whole)
+    times = {"sweep_warp_corr": (ms1, bound1),
+             "sweep_warp": (ms2, bound(*sweep_warp_work(
+                 b, r, w, c, d, r, 2))["bound_ms"]),
+             "sweep_warp_bwd": (ms3, bound(*sweep_warp_work(
+                 b, r, w, c, d, r, 2, True))["bound_ms"])}
+    log("[15a kernels] D=4, bfloat16 bare launches, device ms (bound): "
+        + ", ".join(f"{k} {ms:.4f} ({bd:.4f})" for k, (ms, bd)
+                    in times.items())
+        + f"; row 1 at batch {s['B']}, rows 2-3 at batch {b}; {card}")
+    return times
+
+
+def _fresh(base, cfg):
+    """Card copies of ``base`` stored as ``cfg.param_dtype``, Adam and its
+    schedule."""
+    import torch
+    from movedepth_tpu_torch.models.storage import (param_dtype,
+                                                    store_parameters)
+    from movedepth_tpu_torch.train import state as S
+    models = {k: copy.deepcopy(m).cuda() for k, m in base.items()}
+    if param_dtype(cfg) != torch.float32:
+        store_parameters(models, param_dtype(cfg))
+    return (models,) + S.create_optimizer(models, cfg)
+
+
+def _timed_turns(base, cfgs, batch, draws, runs, warmup):
+    """ms/step and peak allocated GiB of train_step for each labelled
+    config of ``cfgs``, in turns, twice each."""
+    import torch
+    from movedepth_tpu_torch.train import state as S
+    times = {label: [] for label in cfgs}
+    peaks = {label: [] for label in cfgs}
+    for label in list(cfgs) * 2:
+        cfg = cfgs[label]
+        models, opt, sched = _fresh(base, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times[label].append(cuda_ms(lambda: S.train_step(
+            models, opt, sched, batch, cfg, True, draws), runs=runs,
+            warmup=warmup))
+        peaks[label].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        del models, opt, sched
+    return times, peaks
+
+
+def phase_param_storage(card):
+    """15b: bfloat16 parameter storage in the shipped bfloat16 kernel_l1
+    step at batch 12, 640x192, from the same weights (rounded to bfloat16
+    for both): the first step's losses with parameters stored in float32
+    (twice: its spread) and in bfloat16, within max(1e-5, twice that
+    spread) (autocast runs the convolutions on the same bfloat16 weights);
+    the type of every parameter, gradient, Adam state and BatchNorm
+    statistic after the bfloat16 step; ms/step and peak memory of both, in
+    turns (3 warm-up steps, median of 10)."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import build_models
+    from movedepth_tpu_torch.train import state as S
+
+    cfg32 = Config(kernel_l1=True)
+    cfgs = {"float32": cfg32, "bfloat16": cfg32.replace(
+        param_dtype="bfloat16")}
+    base = build_models(cfg32, "cpu", torch.Generator().manual_seed(0))
+    _boost_pose_head(base)
+    with torch.no_grad():
+        for m in base.values():
+            for p in m.parameters():
+                p.copy_(p.bfloat16())
+    bsz = cfg32.batch_size
+    batch = P.synthetic_batch(cfg32, bsz, seed=1, device="cuda")
+    draws = P.sample_draws(cfg32, bsz, torch.Generator("cuda").manual_seed(1),
+                           device="cuda")
+    first = []
+    for label in ("float32", "float32", "bfloat16"):
+        models, opt, sched = _fresh(base, cfgs[label])
+        first.append(S.train_step(models, opt, sched, batch, cfgs[label],
+                                  True, draws)[0])
+    spread = max(_rel(first[1][k], first[0][k]) for k in first[0])
+    gap = max(_rel(first[2][k], first[0][k]) for k in first[0])
+    types = {"parameters": {p.dtype for m in models.values()
+                            for p in m.parameters()},
+             "gradients": {p.grad.dtype for m in models.values()
+                           for p in m.parameters()},
+             "Adam moments": {v.dtype for st in opt.state.values()
+                              for k, v in st.items() if k != "step"},
+             "Adam steps": {st["step"].dtype for st in opt.state.values()},
+             "BatchNorm statistics": {t.dtype for m in models.values()
+                                      for n, t in m.named_buffers()
+                                      if "running" in n}}
+    want = {"parameters": {torch.bfloat16}, "gradients": {torch.bfloat16},
+            "Adam moments": {torch.bfloat16}, "Adam steps": {torch.float32},
+            "BatchNorm statistics": {torch.float32}}
+    log(f"[15b] first step's losses, bfloat16 against float32 storage: "
+        f"worst rel {gap:.3e}; two float32 runs {spread:.3e}; types after "
+        f"the bfloat16 step {types}")
+    if types != want:
+        raise RuntimeError(f"15b: types {types}, expected {want}")
+    if not gap <= max(1e-5, 2 * spread):
+        raise RuntimeError(f"15b: bfloat16 storage moves the losses by "
+                           f"{gap:.3e} (float32 runs {spread:.3e})")
+    del models, opt, sched
+    times, peaks = _timed_turns(base, cfgs, batch, draws, 10, 3)
+    log(f"[15b] bfloat16 kernel_l1 train_step batch {bsz}, 640x192, in "
+        f"turns: ms/step {times}, peak allocated GiB {peaks} (parameters "
+        f"stored float32 / bfloat16); {card}")
+
+
+def _bn_state(models):
+    return {(n, k): t.detach().clone() for n, m in models.items()
+            for k, t in m.named_buffers()}
+
+
+def _train_state(models, opt):
+    """Clones of every parameter, buffer and Adam state of ``models``."""
+    return ([t.detach().clone() for m in models.values()
+             for t in list(m.parameters()) + list(m.buffers())],
+            [{k: v.clone() for k, v in opt.state[p].items()}
+             if p in opt.state else None
+             for m in models.values() for p in m.parameters()])
+
+
+def _load_train_state(models, opt, state):
+    """``models`` and ``opt`` as ``_train_state`` cloned them (a parameter
+    without Adam state is given none: a fresh Adam's)."""
+    import torch
+    tensors, adam = state
+    params = [p for m in models.values() for p in m.parameters()]
+    with torch.no_grad():
+        for t, v in zip([t for m in models.values()
+                         for t in list(m.parameters()) + list(m.buffers())],
+                        tensors):
+            t.copy_(v)
+    for p, st in zip(params, adam):
+        opt.state.pop(p, None)
+        if st is not None:
+            opt.state[p] = {k: v.clone() for k, v in st.items()}
+
+
+def _state_gaps(got, runs):
+    """Per model and kind (parameters, buffers, Adam's moments) of ``got``
+    against the first of ``runs`` (two eager steps from the same state):
+    (tensors, tensors off the first eager step, tensors where the two
+    eager steps differ, relative L2 distance of ``got`` from the first
+    eager step, the second's). ``got`` and ``runs`` are (model names,
+    ``_train_state``) and ``_train_state`` values."""
+    import torch
+    names, (tensors, adam) = got
+    ref, again = runs
+    if not ([st is None for st in adam] == [st is None for st in ref[1]]
+            == [st is None for st in again[1]]):
+        raise RuntimeError("15c: the replay and the eager steps hold Adam "
+                           "state for different parameters")
+    kinds = [(n, "buffers" if i >= c else "parameters")
+             for n, c, total in names for i in range(total)]
+    moments = [(n, "Adam moments") for n, c, total in names for i in range(c)]
+
+    def flat(state):
+        tens, ad = state
+        out = list(tens)
+        for st in ad:
+            out += [v for k, v in sorted((st or {}).items()) if k != "step"]
+        return out
+
+    labels = kinds + [lab for lab, st in zip(moments, adam)
+                      for k in sorted(st or {}) if k != "step"]
+    gaps = {}
+    for lab, g, a, b in zip(labels, flat((tensors, adam)), flat(ref),
+                            flat(again)):
+        entry = gaps.setdefault(lab, [0, 0, 0, 0.0, 0.0, 0.0])
+        entry[0] += 1
+        entry[1] += int(not torch.equal(g, a))
+        entry[2] += int(not torch.equal(b, a))
+        entry[3] += float((g.double() - a.double()).norm() ** 2)
+        entry[4] += float((b.double() - a.double()).norm() ** 2)
+        entry[5] += float(a.double().norm() ** 2)
+    return {lab: (n, off, var, (d / max(s, 1e-300)) ** 0.5,
+                  (e / max(s, 1e-300)) ** 0.5)
+            for lab, (n, off, var, d, e, s) in gaps.items()}
+
+
+def _autotune_per_thread():
+    """Seconds of a convolution no phase ran before with cuDNN's
+    autotuning on: its first call, its second, and its first on another
+    thread. A first call times the algorithms; a call that finds the
+    choice made does not."""
+    import threading
+    import torch
+    torch.backends.cudnn.benchmark = True
+    x = torch.randn(8, 40, 72, 72, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(56, 40, 3, 3, device="cuda", dtype=torch.bfloat16)
+
+    def timed(out):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.nn.functional.conv2d(x, w, padding=1)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+
+    here, there = [], []
+    timed(here)
+    timed(here)
+    thread = threading.Thread(target=timed, args=(there,))
+    thread.start()
+    thread.join()
+    return here[0], here[1], there[0]
+
+
+def phase_remat(card):
+    """15c: rematerialization at batch REMAT_BATCH (above the threshold of
+    24) in the shipped bfloat16 kernel_l1 step: remat_scope "full" and
+    "mvs" against no remat (remat_batch_threshold 32), from the same
+    weights, batch and draws, with cuDNN's heuristic choice of algorithm,
+    as the trainer runs a rematerialized step (its autotuner keeps its
+    choices per thread, so the recompute, on autograd's device thread,
+    could time another algorithm than its forward took; the same two
+    steps with autotuning on, in a key space neither thread has filled,
+    are reported beside a new convolution's first call on two threads).
+    Step 1: every loss within 1e-5 relative of the no-remat step's, every
+    model's gradient within max(5e-3, twice two no-remat runs' spread)
+    (row 3's atomics), every BatchNorm running statistic within 1e-6
+    relative and every count equal; launches (the recompute runs row 2
+    and the frame blocks' row 4b again). ms/step and peak memory of the
+    three in turns (2 warm-up steps, median of 3). Then the remat step
+    with bfloat16 parameters as a CUDA graph (steps_per_dispatch 2), each
+    replay against two eager steps from its state: the losses and every
+    buffer bit for bit; the parameters and Adam moments of each model bit
+    for bit where the two eager steps agree on all of that model's
+    tensors, else within max(5e-3, twice the eager steps' distance)
+    relative L2 (row 3's atomics reach them). Returns the remat ("full")
+    step's launches."""
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import build_models
+    from movedepth_tpu_torch.train import state as S
+
+    cfg = Config(kernel_l1=True, batch_size=REMAT_BATCH)
+    cfgs = {"no remat": cfg.replace(remat_batch_threshold=REMAT_BATCH),
+            "full": cfg, "mvs": cfg.replace(remat_scope="mvs")}
+    base = build_models(cfg, "cpu", torch.Generator().manual_seed(0))
+    _boost_pose_head(base)
+    batch = P.synthetic_batch(cfg, REMAT_BATCH, seed=2, device="cuda")
+    draws = P.sample_draws(cfg, REMAT_BATCH,
+                           torch.Generator("cuda").manual_seed(2), "cuda")
+    # autotuning off: the trainer's setting for a rematerialized step
+    # (train/trainer.py), cuDNN's heuristic choice, the same on every thread
+    runs = {}
+    for label, key in (("no remat", "no remat"),
+                       ("no remat again", "no remat"), ("full", "full"),
+                       ("mvs", "mvs"), ("tuned no remat", "no remat"),
+                       ("tuned full", "full")):
+        # the last two: autotuning on, in a key space of cuDNN's plan
+        # caches that neither thread has filled (deterministic algorithms)
+        torch.backends.cudnn.benchmark = torch.backends.cudnn.deterministic \
+            = label.startswith("tuned")
+        step_cfg = cfgs[key]
+        models, opt, sched = _fresh(base, step_cfg)
+        _zero_launch_counts()
+        losses = S.train_step(models, opt, sched, batch, step_cfg, True,
+                              draws)[0]
+        torch.cuda.synchronize()
+        runs[label] = (losses, {n: [p.grad.clone() for p in m.parameters()]
+                                for n, m in models.items()},
+                       _bn_state(models), _launch_counts())
+        del models, opt, sched
+
+    def grad_rel(got, want):
+        return {n: (sum(float((a.float() - b.float()).norm() ** 2)
+                        for a, b in zip(got[n], want[n]))
+                    / sum(float(b.float().norm() ** 2) for b in want[n]))
+                ** 0.5 for n in want}
+
+    ref = runs["no remat"]
+    spread = grad_rel(runs["no remat again"][1], ref[1])
+    failed = []
+    want_launches = {"no remat": [1, 1, 0, 0, 2, 2],
+                     "full": [2, 1, 0, 0, 4, 2], "mvs": [2, 1, 0, 0, 4, 2]}
+    for label in ("full", "mvs"):
+        losses, grads, stats, launches = runs[label]
+        worst = max(_rel(losses[k], ref[0][k]) for k in ref[0])
+        gaps = grad_rel(grads, ref[1])
+        stat = max(float(((a.double() - b.double()).abs()
+                          / b.double().abs().clamp_min(1e-30)).max())
+                   if b.is_floating_point() else float((a != b).any())
+                   for (a, b) in ((stats[k], ref[2][k]) for k in ref[2]))
+        log(f"[15c] {label} against no remat at batch {REMAT_BATCH}, cuDNN "
+            f"heuristics: losses worst rel {worst:.3e}; gradient rel L2 "
+            "(no-remat spread) "
+            + ", ".join(f"{n} {v:.3e} ({spread[n]:.3e})"
+                        for n, v in gaps.items())
+            + f"; BatchNorm buffers worst rel {stat:.3e}; launches "
+            f"{launches} (no remat {ref[3]})")
+        if not worst <= 1e-5:
+            failed.append(f"{label} losses {worst:.3e}")
+        failed += [f"{label} gradient of {n} {v:.3e}" for n, v in gaps.items()
+                   if not v <= max(5e-3, 2 * spread[n])]
+        if not stat <= 1e-6:
+            failed.append(f"{label} BatchNorm buffers {stat:.3e}")
+    for label, want in want_launches.items():
+        if list(runs[label][3].values()) != want:
+            failed.append(f"{label} launches {runs[label][3]}, expected "
+                          f"{want}")
+    if failed:
+        raise RuntimeError("15c gates failed: " + "; ".join(failed))
+    tuned = grad_rel(runs["tuned full"][1], runs["tuned no remat"][1])
+    first, second, other = _autotune_per_thread()
+    log("[15c] why a rematerialized step takes cuDNN's heuristics: with "
+        "autotuning on, full against no remat, gradient rel L2 (reported) "
+        + ", ".join(f"{n} {v:.3e}" for n, v in tuned.items())
+        + f"; a new convolution's first call {first * 1e3:.3f} ms, its "
+        f"second {second * 1e3:.3f} ms, its first on another thread "
+        f"{other * 1e3:.3f} ms (the autotuner's choices are kept per "
+        "thread, and the recompute runs on autograd's device thread)")
+    torch.backends.cudnn.benchmark = torch.backends.cudnn.deterministic \
+        = False
+    launches = runs["full"][3]
+    del runs, ref
+
+    times, peaks = _timed_turns(base, cfgs, batch, draws, 3, 2)
+    log(f"[15c] bfloat16 kernel_l1 train_step batch {REMAT_BATCH}, 640x192, "
+        f"in turns: ms/step {times}, peak allocated GiB {peaks}; {card}")
+
+    gcfg = cfg.replace(param_dtype="bfloat16")
+    batches = [batch, P.synthetic_batch(cfg, REMAT_BATCH, seed=3,
+                                        device="cuda")]
+    gen = torch.Generator("cuda").manual_seed(3)
+    step_draws = [draws, P.sample_draws(cfg, REMAT_BATCH, gen, "cuda")]
+    graphed, (ref_models, ref_opt, ref_sched) = (_fresh(base, gcfg),
+                                                 _fresh(base, gcfg))
+    names = [(n, len(list(m.parameters())),
+              len(list(m.parameters())) + len(list(m.buffers())))
+             for n, m in graphed[0].items()]
+    multi = S.make_train_multistep(*graphed, gcfg)
+    failed = []
+    for i in range(2):
+        start = _train_state(*graphed[:2])
+        eager = []
+        for _ in range(2):
+            _load_train_state(ref_models, ref_opt, start)
+            losses = S.train_step(ref_models, ref_opt, ref_sched, batches[i],
+                                  gcfg, True, step_draws[i])[0]
+            eager.append((losses, _train_state(ref_models, ref_opt)))
+        got = multi(batches[i:i + 1], step_draws[i:i + 1], True)
+        exact = all(torch.equal(got[k][0], eager[0][0][k])
+                    for k in eager[0][0])
+        again = all(torch.equal(eager[1][0][k], eager[0][0][k])
+                    for k in eager[0][0])
+        gaps = _state_gaps((names, _train_state(*graphed[:2])),
+                           [e[1] for e in eager])
+        steady = {n for n, _, _ in names
+                  if all(v[2] == 0 for (m, _), v in gaps.items() if m == n)}
+        log(f"[15c] remat step with bfloat16 parameters as a CUDA graph, "
+            f"replay {i + 1} against two eager steps from its state: losses "
+            f"bit for bit {exact} (the eager steps' {again}); models whose "
+            f"eager steps agree bit for bit {sorted(steady)}; per model and "
+            "kind, tensors off the eager step / tensors (where the eager "
+            "steps differ), rel L2 (the eager steps'): "
+            + "; ".join(f"{n} {kind} {off}/{cnt} ({var}), {d:.3e} ({e:.3e})"
+                        for (n, kind), (cnt, off, var, d, e)
+                        in gaps.items()))
+        if not exact:
+            failed.append(f"replay {i + 1} losses")
+        for (n, kind), (cnt, off, var, d, e) in gaps.items():
+            if kind == "buffers" or n in steady:
+                if off:
+                    failed.append(f"replay {i + 1} {n} {kind}: {off} of "
+                                  f"{cnt} tensors off")
+            elif not d <= max(5e-3, 2 * e):
+                failed.append(f"replay {i + 1} {n} {kind} rel L2 {d:.3e} "
+                              f"(eager {e:.3e})")
+    log(f"[15c] launches per replay {multi.graphs[True].launches}")
+    if failed:
+        raise RuntimeError("15c: a graphed remat replay is off its eager "
+                           "step: " + "; ".join(failed))
+    return launches
+
+
+def phase_robust_train(root, card):
+    """15d: ``Loader.epoch`` with robust_train's frame offsets on phase
+    10a's tree, native against PIL in turns, one pass each
+    (``phase_loader``); the train CLI's entry point in this process for
+    one epoch of 2 steps (batch 12, 640x192, bfloat16, --kernel_l1) with
+    --robust_train --param_dtype bfloat16 --num_depth_bins 4 --dcn, whose
+    start-up lines must name the native loader reading the offsets,
+    bfloat16 parameters and the remat state, then a resume from ``last``
+    that reloads bfloat16 weights and Adam state for a second epoch.
+    Returns the first run's kernel launches."""
+    import torch
+    from movedepth_tpu_torch.config import ALL_MODELS
+
+    phase_loader(root, card, rt=True, passes=1)
+    splits = os.path.join(root, "splits")
+    os.makedirs(os.path.join(splits, "variants"))
+    with open(os.path.join(splits, "variants", "train_files.txt"), "w") as f:
+        f.write("\n".join(f"{DRIVE} {i} l" for i in range(4, 28)))
+    with open(os.path.join(splits, "variants", "val_files.txt"), "w") as f:
+        f.write("\n".join(f"{DRIVE} {i} l" for i in range(30, 42)))
+    log_dir = os.path.join(root, "log_variants")
+    common = ["--data_path", root, "--log_dir", log_dir, "--model_name",
+              "variants", "--split", "variants", "--splits_dir", splits,
+              "--kernel_l1", "--weights_init", "scratch", "--robust_train",
+              "--param_dtype", "bfloat16", "--num_depth_bins", "4", "--dcn"]
+    lines, epochs, launches = _train_cli_here(common + ["--num_epochs", "1"])
+    want = ("data: native loader, route ",
+            "it reads train and val (train with robust_train's frame offsets)",
+            "parameters bfloat16 (BatchNorm statistics float32); remat off at "
+            "batch 12 (remat_batch_threshold 24: heavy=False, "
+            "heavy_enc=False, remat_scope full); cuDNN autotuning on")
+    missing = [w for w in want if not any(w in ln for ln in lines)]
+    if missing:
+        raise RuntimeError(f"15d: the start-up lines lack {missing}")
+    if {e: n for e, (n, _, _) in epochs.items()} != {0: 2}:
+        raise RuntimeError(f"15d: expected one epoch of 2 steps: {epochs}")
+    if not all(launches[r] for r in GRAPHED_ROWS):
+        raise RuntimeError(f"15d: rows 2, 3 and 4b not launched {launches}")
+    models_dir = os.path.join(log_dir, "variants", "models")
+    last = os.path.join(models_dir, "last")
+    _check_folders(models_dir, ("weights_0", "last"), ALL_MODELS)
+    sd = torch.load(os.path.join(last, "mvs_encoder.pth"), weights_only=True)
+    adam = torch.load(os.path.join(last, "adam.pth"), weights_only=True)
+    kinds = ({sd["out_dcn_0.weight"].dtype, sd["conv0.0.conv.weight"].dtype},
+             {s["exp_avg"].dtype for s in adam["optimizer"]["state"].values()})
+    if kinds != ({torch.bfloat16}, {torch.bfloat16}):
+        raise RuntimeError(f"15d: saved weights and moments {kinds}")
+    _, epochs2, launches2 = _train_cli_here(
+        common + ["--num_epochs", "2", "--load_weights_folder", last])
+    step = _check_folders(models_dir, ("weights_0", "weights_1", "last"),
+                          ALL_MODELS)
+    log(f"[15d] robust_train CLI with bfloat16 parameters, Reg2D and the DCN "
+        f"head: launches {launches}, wall ms/step {epochs}; resume from last "
+        f"(bfloat16 weights and moments): epochs {epochs2}, step {step}, "
+        f"launches {launches2}; {card}")
+    if step != 4 or sorted(epochs2) != [1]:
+        raise RuntimeError("15d: the resume did not train epoch 1 from step 2")
+    return launches
+
+
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
@@ -2660,16 +3299,33 @@ def main():
         done("12b")
         phase_ddp_overhead(train_models, card)
         done("12c")
-    kernel["launches_13"] = phase_export(cpu_models, card)
-    done("13")
-    graphed = phase_multistep(train_models, card)
-    done("14")
+        kernel["launches_13"] = phase_export(cpu_models, card)
+        done("13")
+        graphed = phase_multistep(train_models, card)
+        done("14")
+        variant_launches = phase_variant_paths(card)
+        d4 = phase_kernels_d4(card)
+        done("15a")
+        phase_param_storage(card)
+        done("15b")
+        remat = phase_remat(card)
+        done("15c")
+        rt_cli = phase_robust_train(tmp, card)
+        done("15d")
     for rec in train_kernels + l1_kernels:
         if rec["name"] in ddp_cli:
             rec["launches_12a"] = ddp_cli[rec["name"]]
         if rec["name"] in ddp_ranks:
             rec["launches_12b"] = ddp_ranks[rec["name"]]
         rec["launches_14"] = graphed[rec["name"]]
+        rec["launches_15c"] = remat[rec["name"]]
+        rec["launches_15d"] = rt_cli[rec["name"]]
+    for rec in [kernel] + train_kernels + l1_kernels:
+        for tag, counts in variant_launches.items():
+            if rec["name"] in counts:
+                rec[f"launches_15a_{tag}"] = counts[rec["name"]]
+        if rec["name"] in d4:
+            rec["ms_d4"], rec["bound_ms_d4"] = d4[rec["name"]]
     import torch
     log(card)
     log(json.dumps({"kernels": [kernel] + train_kernels + l1_kernels

@@ -3,9 +3,9 @@
 Every field keeps the JAX package's name and default, so an ``opt.json``
 written by either package loads in the other. Some fields steer only the
 TPU formulation (scoped-VMEM limits, kernel windows, the planar loss
-layout, rematerialization); the port accepts them and reads the ones it
-implements. ``native_loader`` selects the port's own C++ loader, as it
-does the JAX package's. The TPU-only helpers of the JAX module
+layout); the port accepts them and reads the ones it implements.
+``native_loader`` selects the port's own C++ loader, as it does the JAX
+package's. The TPU-only helpers of the JAX module
 (``xla_compiler_options``, ``KERNEL_TIERS``) are not copied.
 """
 
@@ -94,7 +94,8 @@ class Config:
     # ---- system ----
     num_workers: int = 12
     compute_dtype: str = "bfloat16"  # autocast dtype of the models
-    param_dtype: str = "float32"  # the port stores float32 parameters
+    # parameter storage type; BatchNorm running statistics stay float32
+    param_dtype: str = "float32"
     pallas_warp: bool = True  # JAX package only
     sweep_row_window: int = 8  # JAX package only
     sweep_col_window: int = 0  # JAX package only
@@ -106,13 +107,16 @@ class Config:
     # the photometric L1 map from the image-warp kernel's epilogue
     kernel_l1: bool = False
     fold_stage2: bool = False  # JAX package only
-    remat_batch_threshold: int = 24  # JAX package only (not ported yet)
+    # train batches (per card) above this rematerialize the MVS trunk and
+    # the photometric frame blocks (torch.utils.checkpoint)
+    remat_batch_threshold: int = 24
     # > 1: train steps per dispatch, a CUDA graph of one step replayed on
     # the card (train/state.py make_train_multistep)
     steps_per_dispatch: int = 1
     scoped_vmem_limit_kib: int = 32768  # JAX package only
     infer_scoped_vmem_limit_kib: int = 40960  # JAX package only
-    remat_scope: str = "full"  # JAX package only (not ported yet)
+    # "full": the encoders rematerialize too; "mvs": the blocks above only
+    remat_scope: str = "full"
     robust_train: bool = False  # random frame offsets in training
     model_shard_axis: str = "groups"  # JAX package only
 

@@ -12,8 +12,10 @@ package's samples. Two paths read the images:
     the fused float jitter in C++, drawn from the same rng positions as
     the PIL jitter. A loader that cannot be built raises; the dataset
     never switches to PIL on its own. Robust training's random neighbour
-    offsets, and a sample whose frame 0 or both neighbours are missing,
-    take the PIL path, as in the JAX package;
+    offsets read natively too (the JAX package reads them with PIL); a
+    sample whose frame 0 or both neighbours are missing goes to the PIL
+    path, which raises its own error. ``native_items`` counts the samples
+    the C++ loader made;
   * ``native=False``: PIL decode, Lanczos resizes in uint8 and the PIL
     jitter.
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -206,6 +209,8 @@ class KITTIRawDataset:
         self.data_path = data_path
         # the C++ loader, built at first use; raises where it cannot be
         self.native = native_loader.get() if native else None
+        self.native_items = 0
+        self._count_lock = threading.Lock()  # the Loader's threads count
         self.filenames = list(filenames)
         self.height = height
         self.width = width
@@ -296,10 +301,12 @@ class KITTIRawDataset:
             for i, off in zip(self.frame_ids[1:], draws):
                 offsets[i] = int(off)
 
-        if self.native is not None and not self.rt:
+        if self.native is not None:
             sample = self._getitem_native(folder, frame_index, side, do_flip,
-                                          rng if do_aug else None)
+                                          rng if do_aug else None, offsets)
             if sample is not None:
+                with self._count_lock:
+                    self.native_items += 1
                 return sample
 
         frames: Dict[int, Image.Image] = {}
@@ -368,20 +375,26 @@ class KITTIRawDataset:
         return sample
 
     def _getitem_native(self, folder, frame_index, side, do_flip,
-                        aug_rng=None):
+                        aug_rng=None, offsets=None):
         """The C++ loader's sample, or None for the PIL path (frame 0 or
         both neighbours of a frame missing), where PIL raises its own
         errors.
 
-        ``aug_rng`` non-None jitters the scale-0 frames for ``color_aug``:
-        it is the sample's generator at the position where the PIL path
-        draws its jitter, so both draw the same (b, c, s, h, order)."""
+        ``offsets`` maps each frame id to the offset it reads (robust
+        training's draw; default: the id itself). A missing frame takes
+        the frame of id i-1 (i > 0) or i+1 (i < 0) at that id's offset, as
+        the PIL path duplicates it. ``aug_rng`` non-None jitters the
+        scale-0 frames for ``color_aug``: it is the sample's generator at
+        the position where the PIL path draws its jitter, so both draw the
+        same (b, c, s, h, order)."""
+        offsets = offsets or {i: i for i in self.frame_ids}
         paths = []
         for i in self.frame_ids:
-            p = self.image_path(folder, frame_index + i, side)
+            p = self.image_path(folder, frame_index + offsets[i], side)
             if not os.path.isfile(p):  # duplicate the adjacent frame
                 j = i - 1 if i > 0 else i + 1
-                p = self.image_path(folder, frame_index + j, side)
+                p = self.image_path(folder, frame_index + offsets.get(j, j),
+                                    side)
                 if i == 0 or not os.path.isfile(p):
                     return None
             paths.append(p)

@@ -10,13 +10,15 @@ import torch.nn as nn
 
 from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch.models.depth_decoder import DepthDecoder, UncertNet
-from movedepth_tpu_torch.models.fpn import FPN4, ConvexUpsampleHead, Reg3D
+from movedepth_tpu_torch.models.fpn import (FPN4, ConvexUpsampleHead,
+                                            DCNConv2d, Reg2D, Reg3D)
 from movedepth_tpu_torch.models.pose_decoder import PoseDecoder
 from movedepth_tpu_torch.models.resnet import ResNetEncoder, encoder_channels
+from movedepth_tpu_torch.models.storage import param_dtype, store_parameters
 
 __all__ = ["ResNetEncoder", "encoder_channels", "DepthDecoder", "UncertNet",
-           "PoseDecoder", "FPN4", "Reg3D", "ConvexUpsampleHead",
-           "build_models"]
+           "PoseDecoder", "FPN4", "Reg3D", "Reg2D", "DCNConv2d",
+           "ConvexUpsampleHead", "build_models"]
 
 
 def _init_weights(module: nn.Module, generator: torch.Generator):
@@ -31,6 +33,9 @@ def _init_weights(module: nn.Module, generator: torch.Generator):
                 nn.init.uniform_(m.bias, -bound, bound, generator=generator)
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
+    for m in module.modules():  # after its conv_offset's draws above
+        if isinstance(m, DCNConv2d):
+            m.reset_parameters(generator)
 
 
 def build_models(cfg: Config, device="cuda",
@@ -40,19 +45,15 @@ def build_models(cfg: Config, device="cuda",
     does).
 
     Mono encoder/decoder, pose encoder/decoder (unless ``load_pose``), the
-    FPN matching encoder, the Reg3D regularizer, the uncertainty head and
-    (with ``convex_up``) the convex-upsampling head. Weights are drawn on
-    the CPU from ``generator`` (default: seeded with ``cfg.seed``), so a
-    seed gives the same weights on every device.
+    FPN matching encoder (with the deformable head when ``dcn``), the cost
+    regularizer (Reg3D for 8 bins or more, else Reg2D, as the JAX package
+    picks), the uncertainty head and (with ``convex_up``) the
+    convex-upsampling head. Weights are drawn on the CPU from
+    ``generator`` (default: seeded with ``cfg.seed``), so a seed gives the
+    same weights on every device, then stored as ``cfg.param_dtype`` (the
+    BatchNorm running statistics stay float32; ``models.storage``).
     """
-    if cfg.num_depth_bins < 8:
-        raise NotImplementedError(
-            "Reg2D (num_depth_bins < 8) is not ported yet "
-            "(ROADMAP Queue 1 item 7c)")
-    if cfg.dcn:
-        raise NotImplementedError(
-            "the deformable FPN head (dcn=True) is not ported yet "
-            "(ROADMAP Queue 1 item 7e)")
+    dtype = param_dtype(cfg)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     ch_enc = encoder_channels(cfg.res_arch)
@@ -61,8 +62,10 @@ def build_models(cfg: Config, device="cuda",
             "mono_encoder": ResNetEncoder(cfg.res_arch),
             "mono_depth": DepthDecoder(ch_enc, scales=cfg.scales),
             "mask_cnn": UncertNet(),
-            "mvs_encoder": FPN4(base_channels=8, scale=cfg.prior_scale),
-            "reg3d": Reg3D(base_channels=cfg.reg3d_c),
+            "mvs_encoder": FPN4(base_channels=8, scale=cfg.prior_scale,
+                                dcn=cfg.dcn),
+            "reg3d": (Reg3D if cfg.num_depth_bins >= 8 else Reg2D)(
+                base_channels=cfg.reg3d_c),
         }
         if not cfg.load_pose:
             models["pose_encoder"] = ResNetEncoder(cfg.res_arch,
@@ -74,4 +77,5 @@ def build_models(cfg: Config, device="cuda",
     for m in models.values():
         m.to_empty(device="cpu")
         _init_weights(m, generator)
+    store_parameters(models, dtype)
     return {name: m.to(device).eval() for name, m in models.items()}

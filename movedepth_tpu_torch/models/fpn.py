@@ -1,11 +1,16 @@
-"""MVS matching encoder and cost-volume regularizer (port of
+"""MVS matching encoder and cost-volume regularizers (port of
 movedepth_tpu/models/fpn.py), in the reference's module structure."""
 
 from __future__ import annotations
 
+import math
+
+import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from movedepth_tpu_torch.models.layers import ConvBNReLU, ConvBnReLU3D
+from movedepth_tpu_torch.ops.deform import deform_conv2d
 from movedepth_tpu_torch.ops.sampling import resize_bilinear
 
 
@@ -20,13 +25,17 @@ class FPN4(nn.Module):
 
     At ``scale`` s the matching feature has base*{3: 8, 2: 4, 1: 2, 0: 1}
     channels at 1/2^s resolution and the context feature is the stride-2^s
-    trunk (conv2 at the shipped s=2).
+    trunk (conv2 at the shipped s=2). With ``dcn`` (below scale 3, as in
+    the JAX package) the matching feature goes through three
+    :class:`DCNConv2d` blocks, ``out_dcn_0`` and ``out_dcn_1`` with BN and
+    ReLU, ``out_dcn_2`` without either.
     """
 
-    def __init__(self, base_channels=8, scale=2):
+    def __init__(self, base_channels=8, scale=2, dcn=False):
         super().__init__()
         bc = base_channels
         self.scale = scale
+        self.dcn = dcn
         self.conv0 = nn.Sequential(ConvBNReLU(3, bc, 3), ConvBNReLU(bc, bc, 3))
 
         def stage(cin, cout):
@@ -49,6 +58,11 @@ class FPN4(nn.Module):
         else:
             out_ch = {2: bc * 4, 1: bc * 2, 0: bc}[scale]
             self.out = nn.Conv2d(final, out_ch, 3, padding=1, bias=False)
+            if dcn:  # the deformable refinement of the matching feature
+                self.out_dcn_0 = DCNConv2d(out_ch, out_ch)
+                self.out_dcn_1 = DCNConv2d(out_ch, out_ch)
+                self.out_dcn_2 = DCNConv2d(out_ch, out_ch, relu=False,
+                                           use_bn=False)
 
     def forward(self, x):
         conv0 = self.conv0(x)
@@ -63,7 +77,10 @@ class FPN4(nn.Module):
         if self.scale < 1:
             intra = _up2(intra) + self.inner3(conv0)
         ctx = {3: conv3, 2: conv2, 1: conv1, 0: conv0}[self.scale]
-        return self.out(intra), ctx
+        out = self.out(intra)
+        if self.dcn and self.scale < 3:
+            out = self.out_dcn_2(self.out_dcn_1(self.out_dcn_0(out)))
+        return out, ctx
 
 
 class Reg3D(nn.Module):
@@ -104,6 +121,95 @@ class Reg3D(nn.Module):
         x = conv2 + self.conv9(x)
         x = conv0 + self.conv11(x)
         return self.prob(x)[:, 0]
+
+
+class Reg2D(nn.Module):
+    """The cost regularizer for few depth bins (fewer than 8): Reg3D's
+    U-Net with (1, 3, 3) kernels, strides (1, 2, 2) and paddings (0, 1, 1),
+    so the depth axis is never downsampled; the ConvTranspose3d decoders
+    have output_padding (0, 1, 1). Its 1x1x1 prob head has a bias (Reg3D's
+    has none).
+
+    The reference hardcodes that head as ``Conv3d(8, 1, 1)``: 8 input
+    channels whatever ``base_channels`` is, so it runs only at
+    ``base_channels=8``. The JAX package's flax conv takes its input
+    channels from the volume, ``base_channels``, and so does this port.
+    """
+
+    def __init__(self, base_channels=16):
+        super().__init__()
+        c = base_channels
+
+        def blk(cin, cout, stride=1):
+            return ConvBnReLU3D(cin, cout, (1, stride, stride), (1, 3, 3),
+                                (0, 1, 1))
+
+        def up(cin, cout):
+            return nn.Sequential(
+                nn.ConvTranspose3d(cin, cout, (1, 3, 3), stride=(1, 2, 2),
+                                   padding=(0, 1, 1),
+                                   output_padding=(0, 1, 1), bias=False),
+                nn.BatchNorm3d(cout), nn.ReLU(inplace=True))
+
+        self.conv0 = blk(c, c)
+        self.conv1 = blk(c, c * 2, 2)
+        self.conv2 = blk(c * 2, c * 2)
+        self.conv3 = blk(c * 2, c * 4, 2)
+        self.conv4 = blk(c * 4, c * 4)
+        self.conv5 = blk(c * 4, c * 8, 2)
+        self.conv6 = blk(c * 8, c * 8)
+        self.conv7 = up(c * 8, c * 4)
+        self.conv9 = up(c * 4, c * 2)
+        self.conv11 = up(c * 2, c)
+        self.prob = nn.Conv3d(c, 1, 1, bias=True)
+
+    forward = Reg3D.forward  # the same skips and head
+
+
+class DCNConv2d(nn.Module):
+    """Modulated deformable conv block (DCNv2; port of the JAX package's
+    ``DCNConv2d``, the reference's optional ``--dcn`` head): ``conv_offset``
+    predicts 3*K*K channels from the input, the first 2*K*K the per-tap
+    (dy, dx) offsets and a sigmoid of the rest the gates; then
+    :func:`ops.deform.deform_conv2d` with ``weight`` (no bias), then BN and
+    ReLU unless ``use_bn`` / ``relu`` is off. ``conv_offset`` starts at
+    zero, so the block starts as a plain conv.
+
+    State-dict keys follow the reference's modulated deformable conv:
+    ``conv_offset.weight``, ``conv_offset.bias``, then the conv's own
+    ``weight`` and ``bn.*``. The JAX package's ``train/torch_import`` has
+    no mapping for them; ``weights.state_dict_from_jax`` carries them from
+    the JAX package's variables.
+    """
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, relu=True,
+                 use_bn=True):
+        super().__init__()
+        k = kernel_size
+        self.kernel_size, self.relu = k, relu
+        self.conv_offset = nn.Conv2d(in_channels, 3 * k * k, k,
+                                     padding=k // 2, bias=True)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               k, k))
+        self.bn = nn.BatchNorm2d(out_channels) if use_bn else None
+
+    def reset_parameters(self, generator=None):
+        """The conv's weight with torch's default initialization, the
+        offset conv at zero."""
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5),
+                                 generator=generator)
+        nn.init.zeros_(self.conv_offset.weight)
+        nn.init.zeros_(self.conv_offset.bias)
+
+    def forward(self, x):
+        kk = self.kernel_size ** 2
+        offmod = self.conv_offset(x)
+        y = deform_conv2d(x, offmod[:, :2 * kk],
+                          torch.sigmoid(offmod[:, 2 * kk:].float()),
+                          self.weight, kernel_size=self.kernel_size)
+        if self.bn is not None:
+            y = self.bn(y)
+        return F.relu(y) if self.relu else y
 
 
 class ConvexUpsampleHead(nn.Module):

@@ -53,12 +53,15 @@ class ConvBNReLU(nn.Module):
 
 
 class ConvBnReLU3D(nn.Module):
-    """3x3x3 conv (no bias) -> BN -> ReLU over (B, C, D, H, W) volumes."""
+    """3-D conv (no bias) -> BN -> ReLU over (B, C, D, H, W) volumes: 3x3x3
+    with padding 1 unless ``kernel_size`` and ``padding`` say otherwise
+    (Reg2D's (1, 3, 3) and (0, 1, 1))."""
 
-    def __init__(self, in_channels, out_channels, stride=1):
+    def __init__(self, in_channels, out_channels, stride=1, kernel_size=3,
+                 padding=1):
         super().__init__()
-        self.conv = nn.Conv3d(in_channels, out_channels, 3, stride=stride,
-                              padding=1, bias=False)
+        self.conv = nn.Conv3d(in_channels, out_channels, kernel_size,
+                              stride=stride, padding=padding, bias=False)
         self.bn = nn.BatchNorm3d(out_channels)
 
     def forward(self, x):

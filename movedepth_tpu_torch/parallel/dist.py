@@ -153,7 +153,9 @@ def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None,
     graph): with ``check`` the all-reduce carries one slot a parameter
     counting the ranks that hold a gradient, and a count other than 0 or
     the world size raises. That check reads the counts on the host, which
-    a CUDA graph's capture forbids: a captured step passes ``check=False``,
+    a CUDA graph's capture forbids (the counts are exact in bfloat16 up to
+    256 ranks, so bfloat16 gradients carry them in their own all-reduce):
+    a captured step passes ``check=False``,
     and the eager warm-up steps before its capture make the check (a
     replay cannot change which gradients exist). No-op without a process
     group."""

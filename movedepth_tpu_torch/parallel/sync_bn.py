@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from movedepth_tpu_torch.models.storage import batch_norm
 from movedepth_tpu_torch.parallel.dist import is_distributed
 
 
@@ -81,7 +82,8 @@ class SyncBatchNorm(nn.modules.batchnorm._BatchNorm):
     mean and the biased variance ``E[x^2] - E[x]^2`` from it and
     normalizes with them (``_GlobalBatchNorm``, whose backward makes one
     more all-reduce); the output has the input's type (bfloat16 under
-    autocast, as ``nn.BatchNorm`` gives there). Running statistics follow
+    autocast, as ``nn.BatchNorm`` gives there; bfloat16-stored weight and
+    bias are cast to float32 for it). Running statistics follow
     torch's rule: an update on every call, momentum ``momentum``, the
     unbiased variance over the global count. In eval mode, or with no
     process group, it is ``nn.BatchNorm`` bit for bit. Parameter and
@@ -105,6 +107,8 @@ class SyncBatchNorm(nn.modules.batchnorm._BatchNorm):
     def forward(self, x):
         self._check_input_dim(x)
         if not (self.training and is_distributed()):
+            if self.weight.dtype != self.running_mean.dtype:  # param_dtype
+                return batch_norm(self, x)
             return super().forward(x)
         c = x.shape[1]
         n_local = x.numel() // c
@@ -119,7 +123,8 @@ class SyncBatchNorm(nn.modules.batchnorm._BatchNorm):
             mean, ex2 = (stats[:2 * c].view(2, c) / n).unbind()
             var = torch.addcmul(ex2, mean, mean, value=-1)
             if self.track_running_stats:
-                self.num_batches_tracked.add_(1)
+                if self.num_batches_tracked is not None:  # torch's rule
+                    self.num_batches_tracked.add_(1)
                 # momentum None reads the count on the host, which a CUDA
                 # graph's capture forbids; the port's BatchNorms have 0.1
                 m = (self.momentum if self.momentum is not None
@@ -133,8 +138,12 @@ class SyncBatchNorm(nn.modules.batchnorm._BatchNorm):
             scaled = torch.mul(w, invstd).div_(n_local)
             coef = torch.cat([scaled, scaled * invstd])
             share = n_local / n
-        return _GlobalBatchNorm.apply(x, self.weight, self.bias, mean, var,
-                                      invstd, coef, share, self.eps,
+        # parameters stored in a narrower type (param_dtype) join the
+        # statistics' type here; their gradients go back through the cast
+        weight, bias = (None if t is None else t.to(acc)
+                        for t in (self.weight, self.bias))
+        return _GlobalBatchNorm.apply(x, weight, bias, mean, var, invstd,
+                                      coef, share, self.eps,
                                       self.process_group)
 
 
@@ -147,7 +156,7 @@ def convert_sync_batchnorm(models: Mapping[str, nn.Module],
     for model in models.values():
         for parent in list(model.modules()):
             for name, child in list(parent.named_children()):
-                if type(child) in (nn.BatchNorm2d, nn.BatchNorm3d):
+                if isinstance(child, (nn.BatchNorm2d, nn.BatchNorm3d)):
                     setattr(parent, name, _synced(child, process_group))
     return models
 

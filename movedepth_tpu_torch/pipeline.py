@@ -12,8 +12,15 @@ NCHW.
 
 Models run under ``torch.autocast("cuda", torch.bfloat16)`` when
 ``cfg.compute_dtype`` is "bfloat16" and the batch is on a CUDA device, and
-in float32 otherwise. Geometry, depth bins, the softmax, the decode, the
-losses and the image warps always run in float32, outside autocast.
+in float32 otherwise; parameters stored in another type (``param_dtype``)
+are cast where they are used (``models.storage``). Geometry, depth bins,
+the softmax, the decode, the losses and the image warps always run in
+float32, outside autocast.
+
+A training batch of more than ``cfg.remat_batch_threshold`` rows is
+rematerialized as the JAX package's is (``torch.utils.checkpoint``): the
+MVS trunk and the photometric frame blocks, and with ``remat_scope``
+"full" also the encoders (see :func:`forward_train`).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch.data.synthetic import make_batch
@@ -87,6 +95,58 @@ def _models_ctx(cfg: Config, device: torch.device):
     return contextlib.nullcontext()
 
 
+@contextlib.contextmanager
+def _frozen_stats(models):
+    """Every BatchNorm of ``models`` keeps its running statistics as they
+    are until the block ends: momentum 0 (the update ``(1 - m) * running +
+    m * batch`` gives the running value back exactly) and no count (the
+    ``num_batches_tracked`` buffer hidden). The call is otherwise the
+    same, so it saves the same tensors for the backward (checkpoint's
+    check)."""
+    bns = [m for model in models.values() for m in model.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+           and m.training and m.track_running_stats]
+    saved = [(m.momentum, m._buffers["num_batches_tracked"]) for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+        m._buffers["num_batches_tracked"] = None
+    try:
+        yield
+    finally:
+        for m, (momentum, count) in zip(bns, saved):
+            m.momentum = momentum
+            m._buffers["num_batches_tracked"] = count
+
+
+def _checkpointed(models, fn, *args):
+    """``fn(*args)``, rematerialized in the backward: non-reentrant
+    ``torch.utils.checkpoint``, which keeps ``fn``'s inputs and outputs
+    and runs ``fn`` again where the backward needs what it made. The
+    recompute runs with the statistics of every BatchNorm of ``models``
+    (those ``fn`` runs) frozen, so a rematerialized step leaves the
+    running statistics as the plain step does (the JAX package's
+    functional remat never updates them twice).
+    Nothing inside draws from a generator, so no RNG state is kept (a
+    CUDA graph's capture forbids reading it). ``fn`` enters the models'
+    context itself: the recompute may run on another thread."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _frozen_stats(models)))
+
+
+def _run(models, name, cfg: Config, x, remat: bool = False):
+    """``models[name](x)``, called inside the models' context (the
+    caller's); with ``remat`` rematerialized in the backward
+    (:func:`_checkpointed`), whose recompute enters the context itself."""
+    if not remat:
+        return models[name](x)
+
+    def fn(x):
+        with _models_ctx(cfg, x.device):
+            return models[name](x)
+    return _checkpointed({name: models[name]}, fn, x)
+
+
 def _nchw(x):
     return x.permute(0, 3, 1, 2)
 
@@ -100,16 +160,17 @@ def scale_intrinsics(K, scale: int):
     return K
 
 
-def _pose(models, color, f, cfg: Config):
+def _pose(models, color, f, cfg: Config, remat: bool = False):
     """PoseNet on the (frame f, reference) pair of ``color`` (B, F, H, W, 3),
     frames in ``cfg.frame_ids`` order: the 4x4 camera transform (B, 4, 4),
-    inverted for a past frame."""
+    inverted for a past frame. ``remat``: the encoder is rematerialized."""
     fid_to_idx = {g: i for i, g in enumerate(cfg.frame_ids)}
     pair = (color[:, fid_to_idx[f]], color[:, 0])
     if f > 0:
         pair = pair[::-1]
     with _models_ctx(cfg, color.device):
-        feats = models["pose_encoder"](_nchw(torch.cat(pair, dim=-1)))
+        feats = _run(models, "pose_encoder", cfg,
+                     _nchw(torch.cat(pair, dim=-1)), remat)
         aa, tr = models["pose"]([feats])
     return transformation_from_parameters(aa[:, 0, 0].float(),
                                           tr[:, 0, 0].float(), invert=f < 0)
@@ -157,9 +218,10 @@ def mvs_depth_from_features(models, ref_match, src_matches, depth_bins, K_p,
     return depth_mvs, cost_prob
 
 
-def _mono(models, color0, cfg: Config):
+def _mono(models, color0, cfg: Config, remat: bool = False):
     with _models_ctx(cfg, color0.device):
-        disps = models["mono_depth"](models["mono_encoder"](_nchw(color0)))
+        disps = models["mono_depth"](
+            _run(models, "mono_encoder", cfg, _nchw(color0), remat))
     return {k: v[:, 0].float() for k, v in disps.items()}  # (B, Hs, Ws)
 
 
@@ -272,15 +334,16 @@ def sample_draws(cfg: Config, batch_size: int, generator=None,
     return {"box": box, "noise": list(noise[:, rows])}
 
 
-def predict_train_poses(models, batch, cfg: Config):
+def predict_train_poses(models, batch, cfg: Config, remat: bool = False):
     """Training poses: ({frame_id: cam_T_cam (B, 4, 4)} for every
     ``frame_ids[1:]`` frame, with a live gradient, and the detached
-    relative poses (B, M, 4, 4) of ``matching_ids[1:]``)."""
+    relative poses (B, M, 4, 4) of ``matching_ids[1:]``). ``remat``: the
+    pose encoder is rematerialized."""
     if cfg.load_pose:
         rel_all = batch["relative_pose"]
         cam_T_cam = {f: rel_all[:, i] for i, f in enumerate(cfg.frame_ids[1:])}
     else:
-        cam_T_cam = {f: _pose(models, batch["color_aug"], f, cfg)
+        cam_T_cam = {f: _pose(models, batch["color_aug"], f, cfg, remat)
                      for f in cfg.frame_ids[1:]}
     rel = torch.stack([cam_T_cam[f].detach() for f in cfg.matching_ids[1:]],
                       dim=1)
@@ -347,7 +410,8 @@ def _multi_warp(src, grid, target=None):
 
 
 def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
-                       cfg: Config, noise, mvs_mask=None, group=None):
+                       cfg: Config, noise, mvs_mask=None, group=None,
+                       remat: bool = False):
     """All reprojection losses, one multi-warp per source frame.
 
     The K = num_scales + 2 depth maps (mono scales, MVS, fused) are
@@ -358,8 +422,10 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
     still reads the warped stack; the losses are those of the torch tail.
     ``noise`` holds the automask tiebreaks in use order (``sample_draws``).
     With a process ``group`` the masked means run over the global batch
-    (``ops.losses.masked_mean``). Returns (losses dict, {frame_id: warped
-    scale-0 image}).
+    (``ops.losses.masked_mean``). With ``remat`` each frame's block
+    (backproject, project, warp, SSIM and L1) is rematerialized: only the
+    depth maps and the poses are kept for the backward, and the warp runs
+    again there. Returns (losses dict, {frame_id: warped scale-0 image}).
     """
     color = batch["color"]
     target = color[:, 0]
@@ -378,15 +444,15 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
                                           cfg.max_depth)[1])
     depth_all = torch.stack(depth_scales + [depth_mvs_full, fused_depth],
                             dim=1)  # (B, K, H, W)
-    pts = backproject(depth_all, invK0[:, None])  # (B, K, 4, HW)
 
-    mono_reproj, mvs_reproj, fuse_reproj, warped_log = [], [], [], {}
-    for f in cfg.frame_ids[1:]:
-        T_live = cam_T_cam[f]
-        T_det = T_live.detach()
-        T_all = torch.stack([T_live] * nsc + [T_det, T_det], dim=1)
+    def frame_block(depth_all, T_all, src, pts=None):
+        """(reprojection (B, K, H, W, 1), L1 (B, K, H, W, 1), warped scale-0
+        image) of one source frame; ``pts`` None: backprojected here, and
+        the image is a copy (a view would keep the whole warped stack)."""
+        own = pts is None
+        if own:
+            pts = backproject(depth_all, invK0[:, None])
         grid = project(pts, K0[:, None], T_all, h, w)  # (B, K, H, W, 2)
-        src = color[:, fid_to_idx[f]]
         if cfg.kernel_l1:
             warped, k_l1 = _multi_warp(src, grid, target=target)
         else:
@@ -401,9 +467,22 @@ def photometric_losses(disps, depth_mvs_full, fused_depth, batch, cam_T_cam,
         if not cfg.no_ssim:
             sm = torch.mean(ssim(wf, tf), dim=-1, keepdim=True)
             rp = cfg.ssim_lw * sm + (1.0 - cfg.ssim_lw) * l1
-        rp = rp.view(b, k_all, h, w, 1)
-        l1 = l1.view(b, k_all, h, w, 1)
-        warped_log[f] = warped[:, 0]
+        w0 = warped[:, 0]
+        return (rp.view(b, k_all, h, w, 1), l1.view(b, k_all, h, w, 1),
+                w0.clone() if own else w0)
+
+    pts = None if remat else backproject(depth_all, invK0[:, None])
+    mono_reproj, mvs_reproj, fuse_reproj, warped_log = [], [], [], {}
+    for f in cfg.frame_ids[1:]:
+        T_live = cam_T_cam[f]
+        T_det = T_live.detach()
+        T_all = torch.stack([T_live] * nsc + [T_det, T_det], dim=1)
+        src = color[:, fid_to_idx[f]]
+        if remat:
+            rp, l1, warped_log[f] = _checkpointed({}, frame_block,
+                                                  depth_all, T_all, src)
+        else:
+            rp, l1, warped_log[f] = frame_block(depth_all, T_all, src, pts)
         mono_reproj.append(rp[:, :nsc])
         mvs_reproj.append(rp[:, nsc])
         fuse_reproj.append(l1[:, nsc + 1])  # fuse: pure L1 (ssim_lw = 0)
@@ -492,6 +571,17 @@ def compute_mvs_masks(cost_prob, disp0, batch, cam_T_cam, depth_mvs_full,
     return mask
 
 
+def remat_gate(batch_size: int, cfg: Config, train: bool = True):
+    """(heavy, heavy_enc) of a forward at ``batch_size`` rows: the JAX
+    package's ``heavy = train and b > remat_batch_threshold`` and
+    ``heavy_enc = heavy and remat_scope == "full"``. An unknown scope
+    raises."""
+    if cfg.remat_scope not in ("full", "mvs"):
+        raise ValueError(f"remat_scope {cfg.remat_scope!r}: 'full' or 'mvs'")
+    heavy = train and batch_size > cfg.remat_batch_threshold
+    return heavy, heavy and cfg.remat_scope == "full"
+
+
 def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws,
                   group=None):
     """The training forward: every model, both cost-volume passes and all
@@ -507,20 +597,35 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws,
     over the global batch; the BatchNorms do where the models carry
     ``parallel.sync_bn.SyncBatchNorm``. Returns (total loss, losses dict,
     outputs dict); the losses dict has the JAX package's keys.
+
+    Rematerialization, the JAX package's gate: in training (models in
+    train mode, gradients on) with more than ``cfg.remat_batch_threshold``
+    rows (this rank's), ``heavy`` rematerializes the MVS trunk (both cost
+    volumes, Reg3D, softmax and decode) and the photometric frame blocks;
+    with ``remat_scope`` "full" also ``heavy_enc``: the pose, matching and
+    mono encoders (not the decoders). The losses and gradients are the
+    plain step's, and so are the BatchNorm running statistics
+    (:func:`_checkpointed`).
     """
     color_aug = batch["color_aug"]
     h, w = cfg.height, cfg.width
     fid_to_idx = {f: i for i, f in enumerate(cfg.frame_ids)}
     dev = color_aug.device
+    # training: the models in train mode, gradients on
+    heavy, heavy_enc = remat_gate(
+        color_aug.shape[0], cfg,
+        torch.is_grad_enabled() and models["mvs_encoder"].training)
 
-    cam_T_cam, rel = predict_train_poses(models, batch, cfg)
+    cam_T_cam, rel = predict_train_poses(models, batch, cfg, heavy_enc)
 
     with _models_ctx(cfg, dev):
-        ref_match, ref_ctx = models["mvs_encoder"](_nchw(color_aug[:, 0]))
+        ref_match, ref_ctx = _run(models, "mvs_encoder", cfg,
+                                  _nchw(color_aug[:, 0]), heavy_enc)
         src_matches = [
-            models["mvs_encoder"](_nchw(color_aug[:, fid_to_idx[f]]))[0]
+            _run(models, "mvs_encoder", cfg,
+                 _nchw(color_aug[:, fid_to_idx[f]]), heavy_enc)[0]
             for f in cfg.matching_ids[1:]]
-    disps = _mono(models, color_aug[:, 0], cfg)
+    disps = _mono(models, color_aug[:, 0], cfg, heavy_enc)
 
     disp0_full = resize_bilinear(disps[("disp", 0)], (h, w),
                                  align_corners=False)
@@ -533,12 +638,16 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws,
     masked_img, aug_mask = random_image_mask(color_aug[:, 0],
                                              (h // 3, w // 3), draws["box"])
     with _models_ctx(cfg, dev):
-        ref_aug, _ = models["mvs_encoder"](_nchw(masked_img))
+        ref_aug, _ = _run(models, "mvs_encoder", cfg, _nchw(masked_img),
+                          heavy_enc)
     # inv_ex: linalg.inv reads its error flag on the host, which a CUDA
     # graph's capture forbids
-    depth_mvs, cost_prob, depth_mvs_aug = mvs_depth_two_pass(
-        models, ref_match, ref_aug, src_matches, bins, K_p,
-        torch.linalg.inv_ex(K_p).inverse, rel, cfg)
+    trunk_args = (models, ref_match, ref_aug, src_matches, bins, K_p,
+                  torch.linalg.inv_ex(K_p).inverse, rel, cfg)
+    depth_mvs, cost_prob, depth_mvs_aug = (
+        _checkpointed({"reg3d": models["reg3d"]}, mvs_depth_two_pass,
+                      *trunk_args) if heavy
+        else mvs_depth_two_pass(*trunk_args))
     with _models_ctx(cfg, dev):
         trust_mono = models["mask_cnn"](entropy(cost_prob, dim=1,
                                                 keepdim=True))
@@ -570,7 +679,7 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws,
                                  depth_mvs_full, cfg)
     losses, warped_log = photometric_losses(
         disps, depth_mvs_full, fused, batch, cam_T_cam, cfg, draws["noise"],
-        mvs_mask=mvs_mask, group=group)
+        mvs_mask=mvs_mask, group=group, remat=heavy)
     losses["masked_loss"] = masked_loss
     total = (losses["mono_loss"] + losses["masked_loss"]
              + losses["mvs_loss"] + losses["fuse_reproj_loss"])

@@ -72,7 +72,7 @@ def check_loadable(folder: str):
         raise ValueError(
             f"{folder} holds no .pth files: it is not a reference .pth "
             "folder. Orbax checkpoints of the JAX package need JAX and do "
-            "not load in the PyTorch port (ROADMAP Queue 1 item 7b).")
+            "not load in the PyTorch port (ROADMAP Queue 1, tag 7b).")
 
 
 def load_models(folder: str, models: Mapping[str, torch.nn.Module],
@@ -96,7 +96,8 @@ def load_optimizer(folder: str, optimizer, device) -> Optional[int]:
     on the CPU (or before Adam was capturable) has it False, one written
     on the card True. Each group keeps the live optimizer's value, and the
     step counts move where it puts them (capturable: float32 on the
-    parameter's device; else on the host)."""
+    parameter's device; else on the host). The moments load in their
+    parameter's type (torch's rule), so bfloat16 ones stay bfloat16."""
     path = os.path.join(folder, OPTIMIZER_FILE)
     if not os.path.isfile(path):
         return None

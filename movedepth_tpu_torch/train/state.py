@@ -9,9 +9,10 @@ piecewise-constant schedule does. Each group's rate is a 0-d tensor on the
 parameters' device that :class:`StepSchedule` overwrites in place, and on
 the card Adam is ``capturable``: one train step can then be captured as a
 CUDA graph, which is how :func:`make_train_multistep` ports the JAX
-package's multi-step scan (``steps_per_dispatch``). The XLA-only levers of
-the JAX package (compiler options, scoped-VMEM limits) have no
-counterpart; rematerialization is not ported yet (ROADMAP).
+package's multi-step scan (``steps_per_dispatch``); a rematerialized step
+(``remat_batch_threshold``, pipeline.py) captures too. The XLA-only levers
+of the JAX package (compiler options, scoped-VMEM limits) have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -83,8 +84,10 @@ def create_optimizer(models: Dict[str, torch.nn.Module], cfg: Config,
     """(Adam over every model's parameters in the two groups, its
     step-based :class:`StepSchedule`). Each group's rate is a float32 0-d
     tensor on the parameters' device; on the card Adam is ``capturable``
-    (its step count and bias corrections stay on the device). Call the
-    schedule's ``step()`` after each optimizer step."""
+    (its step count and bias corrections stay on the device). Adam's
+    moments take each parameter's type, bfloat16 with ``param_dtype``
+    "bfloat16", as optax's do. Call the schedule's ``step()`` after each
+    optimizer step."""
     device = next(p.device for m in models.values() for p in m.parameters())
     rates = (cfg.learning_rate, cfg.learning_rate * cfg.lr_fac)
     groups = [

@@ -119,7 +119,13 @@ class Trainer:
             raise ValueError(f"world_size {world_size} needs a process group")
         self.rank, self.world_size, self.group = rank, world_size, group
         if self.device.type == "cuda":
-            torch.backends.cudnn.benchmark = True  # fixed training shapes
+            # fixed training shapes: cuDNN times its algorithms, but not
+            # for a rematerialized step. Its timed choices are cached per
+            # thread, and the recompute runs on autograd's device thread,
+            # which may time another algorithm than the forward took: the
+            # backward would then differ from the step it recomputes
+            torch.backends.cudnn.benchmark = not P.remat_gate(
+                cfg.batch_size, self.cfg)[0]
         self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
         self.models = build_models(cfg, self.device)
         if group is not None:
@@ -144,14 +150,8 @@ class Trainer:
             cfg.data_path, val_files, cfg.height, cfg.width, cfg.frame_ids,
             is_train=False, img_ext=img_ext, load_pose=cfg.load_pose,
             seed=cfg.seed, native=cfg.native_loader)
-        native = self.train_dataset.native
-        if rank == 0 and native is None:
-            print("data: PIL loader (--no-native_loader)", flush=True)
-        elif rank == 0:
-            built = ("already built" if native.build_s is None
-                     else f"built in {native.build_s:.1f} s")
-            print(f"data: {native.describe()}; csrc/loader.cpp {built}",
-                  flush=True)
+        if rank == 0:
+            print(self._startup_line(), flush=True)
         self.train_loader = Loader(
             self.train_dataset, cfg.batch_size, rank, world_size,
             shuffle=True, drop_last=True, num_workers=cfg.num_workers,
@@ -203,6 +203,35 @@ class Trainer:
         # torch.profiler trace of rank 0's steps [2, 2 + profile_steps)
         self.profile_steps = profile_steps if rank == 0 else 0
         self._profiler = None
+
+    def _startup_line(self) -> str:
+        """What reads each dataset (robust_train's offsets included), the
+        parameters' storage type, the rematerialization at the configured
+        batch and, on the card, whether cuDNN times its algorithms."""
+        cfg = self.cfg
+        native = self.train_dataset.native
+        rt = (" (train with robust_train's frame offsets)"
+              if cfg.robust_train else "")
+        if native is None:
+            data = ("data: PIL loader (--no-native_loader) for train and "
+                    f"val{rt}")
+        else:
+            built = ("already built" if native.build_s is None
+                     else f"built in {native.build_s:.1f} s")
+            data = (f"data: {native.describe()}; csrc/loader.cpp {built}; "
+                    f"it reads train and val{rt}")
+        heavy, heavy_enc = P.remat_gate(cfg.batch_size, cfg)
+        remat = (f"remat {'on' if heavy else 'off'} at batch "
+                 f"{cfg.batch_size} (remat_batch_threshold "
+                 f"{cfg.remat_batch_threshold}: heavy={heavy}, "
+                 f"heavy_enc={heavy_enc}, remat_scope {cfg.remat_scope})")
+        if self.device.type == "cuda":
+            remat += (f"; cuDNN autotuning "
+                      f"{'off' if heavy else 'on'}")
+        params = (f"parameters {cfg.param_dtype}" if cfg.param_dtype ==
+                  "float32" else f"parameters {cfg.param_dtype} (BatchNorm "
+                  "statistics float32)")
+        return f"{data}\n{params}; {remat}"
 
     # ------------------------------------------------------------- loading
 

@@ -7,13 +7,17 @@ flax kernels (kh, kw, I, O) / (kd, kh, kw, I, O) go back to torch's
 (O, I, ...) layout, the transposed 3-D convs of Reg3D are flipped back
 (the JAX package stores them spatially flipped, as input-dilated
 correlations), and BatchNorm scale/bias and mean/var become
-weight/bias and running_mean/running_var.
+weight/bias and running_mean/running_var. Reg2D's leaves take Reg3D's
+names (its ``prob`` has a bias); a deformable block of the FPN head
+(``out_dcn_N``) holds its own kernel beside its ``conv_offset`` and ``bn``
+children. bfloat16 leaves (``param_dtype``) stay bfloat16.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+from collections.abc import Mapping as MappingABC
 from typing import Dict, Mapping
 
 import numpy as np
@@ -30,17 +34,28 @@ _TRANSPOSED = ("conv7_0", "conv9_0", "conv11_0")  # Reg3D's ConvTranspose3d
 
 
 def _leaves(tree, path=()):
-    """(path, node) for every conv ('kernel') and BatchNorm ('scale')."""
+    """(path, node) for every conv ('kernel') and BatchNorm ('scale'), and
+    below a node that holds both a kernel and child modules (a DCN block),
+    its children too."""
     if "kernel" in tree or "scale" in tree:
         yield path, tree
-        return
     for key, sub in tree.items():
-        yield from _leaves(sub, path + (key,))
+        if isinstance(sub, MappingABC):
+            yield from _leaves(sub, path + (key,))
+
+
+def _attr(part):
+    """A flax module name as a torch attribute path: conv0_1 -> conv0.1,
+    conv7_0 -> conv7.0; the DCN head's out_dcn_N and conv_offset are
+    attribute names as they are."""
+    if part == "conv_offset" or part.startswith("out_dcn_"):
+        return part
+    return part.replace("_", ".")
 
 
 def _prefix(name, path, scales):
     """Flax module path -> the reference's state_dict prefix."""
-    dotted = ".".join(p.replace("_", ".") for p in path)
+    dotted = ".".join(_attr(p) for p in path)
     if name in ("mono_encoder", "pose_encoder"):
         return "encoder." + dotted  # layer1_0/downsample_0 -> layer1.0...
     if name in ("mvs_encoder", "reg3d"):
@@ -91,7 +106,17 @@ def state_dict_from_jax(name: str, variables: Mapping,
                         prefix + ".running_var": st["var"],
                         prefix + ".num_batches_tracked": np.zeros((),
                                                                   np.int64)})
-    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+    return {k: _tensor(v) for k, v in out.items()}
+
+
+def _tensor(v):
+    """A numpy or jax array as a torch tensor of its type: a bfloat16 one
+    (ml_dtypes, which numpy cannot hand to torch) through its bits."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.uint16))
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def load_state(model: torch.nn.Module, state: Mapping, source: str):

@@ -140,13 +140,46 @@ def test_native_items_near_the_pil_items(tree, jax_native):
     assert jittered
 
 
-def test_native_dataset_robust_train_reads_with_pil(tree, jax_native):
-    port, jax_ds = _native_datasets(tree, True, range(3, 5), rt=True)
-    pil, _ = _datasets(tree, True, range(3, 5), rt=True)
-    for i in range(len(port)):
-        got = port[i]
-        _assert_same(got, jax_ds[i])
-        _assert_same(got, pil[i])
+def test_native_dataset_robust_train_reads_natively(tree, jax_native):
+    """robust_train's random frame offsets through the C++ loader: every
+    sample native (the count), its frames and pyramid bit for bit the JAX
+    package's C++ loader on the offset frames (a missing one duplicating
+    frame 0, as the PIL path does), and near the PIL samples of both
+    packages (which read rt with PIL) under the native-vs-PIL bounds of
+    test_native_items_near_the_pil_items."""
+    lines = range(8)  # offsets up to 3 frames: lines 0-2 and 5-7 miss some
+    port, jax_ds = _native_datasets(tree, True, lines, rt=True)
+    pil, _ = _datasets(tree, True, lines, rt=True)
+    missing = 0
+    for epoch in (0, 1):
+        for ds in (port, jax_ds, pil):
+            ds.set_epoch(epoch)
+        for i in range(len(port)):
+            before = port.native_items
+            got = port[i]
+            assert port.native_items == before + 1
+            rng = port._rng(i)
+            rng.random()
+            flip = rng.random() > 0.5
+            offs = rng.choice([-3, -2, -1, 1, 2, 3], size=2, replace=False)
+            frames = []
+            for off in (0, *offs):
+                j = i + int(off)
+                missing += not 0 <= j < 8
+                frames.append(j if 0 <= j < 8 else i)
+            paths = [port.image_path(DRIVE, j, "l") for j in frames]
+            want = JNL.load_batch(paths, 64, 32, 4, [flip] * 3)
+            np.testing.assert_array_equal(got["color"], want[0])
+            for sc in (1, 2, 3):
+                np.testing.assert_array_equal(got[f"color_pyr_{sc}"],
+                                              want[sc][0])
+            for other in (pil[i], jax_ds[i]):
+                assert sorted(other) == sorted(got)
+                assert np.abs(got["color"] - other["color"]).max() < 0.06
+                diff = np.abs(got["color_aug"] - other["color_aug"])
+                assert diff.max() < 0.08 and diff.mean() < 0.01
+                np.testing.assert_array_equal(got["K"], other["K"])
+    assert missing
 
 
 def test_native_dataset_missing_frame_raises_from_pil(tree, jax_native):

@@ -291,11 +291,15 @@ def test_max_pool_3x3_s2(rng):
 
 
 def test_build_models_defers_unported_options():
+    """Reg2D below 8 bins and the DCN head are built now (their parity
+    tests are in tests/test_torch_port_variants.py); an arch torchvision
+    lacks and a parameter type the port does not store are refused."""
     from movedepth_tpu_torch import Config
-    for cfg, what in ((Config(num_depth_bins=4), "Reg2D"),
-                      (Config(dcn=True), "dcn")):
-        with pytest.raises(NotImplementedError, match=what):
-            TM.build_models(cfg)
+    models = TM.build_models(Config(num_depth_bins=4, dcn=True), "cpu")
+    assert type(models["reg3d"]) is TM.Reg2D
+    assert isinstance(models["mvs_encoder"].out_dcn_0, TM.DCNConv2d)
+    with pytest.raises(ValueError, match="param_dtype"):
+        TM.build_models(Config(param_dtype="float64"), "cpu")
     # every ResNet depth is ported; an arch torchvision lacks is refused
     with pytest.raises(ValueError, match="ResNet26"):
         TM.build_models(Config(res_arch=26), "cpu")

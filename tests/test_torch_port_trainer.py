@@ -243,12 +243,21 @@ def test_trainer_scratch_init_does_not_search(kitti_tree, monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported(kitti_tree):
-    """Reg2D (fewer than 8 bins) and the deformable FPN head are not
-    ported; steps_per_dispatch > 1 is (tests/test_torch_port_multistep.py
-    trains with it)."""
+    """Reg2D (fewer than 8 bins) and the deformable FPN head are ported
+    now: the trainer builds them (tests/test_torch_port_variants.py holds
+    them against the JAX package). What it refuses is a card it does not
+    have, and values of param_dtype and remat_scope the port cannot
+    follow."""
     root, splits = kitti_tree
-    for kw in (dict(num_depth_bins=4), dict(dcn=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    reg2d = Trainer(make_cfg(root, model_name="t_reg2d", num_depth_bins=4),
+                    split_dir=splits, device="cpu")
+    assert type(reg2d.models["reg3d"]).__name__ == "Reg2D"
+    dcn = Trainer(make_cfg(root, model_name="t_dcn", dcn=True),
+                  split_dir=splits, device="cpu")
+    assert dcn.models["mvs_encoder"].out_dcn_2.bn is None
+    for kw, what in ((dict(param_dtype="int8"), "param_dtype"),
+                     (dict(remat_scope="encoders"), "remat_scope")):
+        with pytest.raises(ValueError, match=what):
             Trainer(make_cfg(root, model_name="t_refused", **kw),
                     split_dir=splits, device="cpu")
     if not torch.cuda.is_available():
@@ -275,6 +284,40 @@ def test_trainer_datasets_follow_native_loader(kitti_tree, capsys,
         assert trainer.train_dataset.native is None
         assert trainer.val_dataset.native is None
         assert "data: PIL loader (--no-native_loader)" in out
+
+
+def test_cli_train_variants_and_resume(kitti_tree, capsys):
+    """The train CLI with robust_train on the native loader, bfloat16
+    parameters, Reg2D, the DCN head and rematerialization at batch 2
+    (threshold 1): the start-up lines say so, the checkpoint holds
+    bfloat16 weights and Adam state, and a resume from it continues."""
+    root, _ = kitti_tree
+    args = ["--data_path", str(root), "--log_dir", str(root / "log"),
+            "--model_name", "t_variants", "--split", "tiny", "--splits_dir",
+            str(root / "splits"), "--height", "64", "--width", "96",
+            "--batch_size", "2", "--num_epochs", "1", "--num_workers", "2",
+            "--log_frequency", "2", "--compute_dtype", "float32",
+            "--weights_init", "scratch", "--device", "cpu",
+            "--robust_train", "--param_dtype", "bfloat16",
+            "--num_depth_bins", "4", "--dcn", "--remat_batch_threshold", "1"]
+    trainer = cli_train.main(args)
+    out = capsys.readouterr().out
+    assert "data: native loader, route " in out
+    assert "it reads train and val (train with robust_train's frame " in out
+    assert trainer.train_dataset.native_items > 0
+    assert "parameters bfloat16 (BatchNorm statistics float32)" in out
+    assert ("remat on at batch 2 (remat_batch_threshold 1: heavy=True, "
+            "heavy_enc=True, remat_scope full)") in out
+    last = os.path.join(_models_dir(root, "t_variants"), "last")
+    sd = torch.load(os.path.join(last, "reg3d.pth"), weights_only=True)
+    assert sd["prob.bias"].dtype == torch.bfloat16
+    adam = torch.load(os.path.join(last, "adam.pth"), weights_only=True)
+    assert {s["exp_avg"].dtype for s in adam["optimizer"]["state"].values()
+            } == {torch.bfloat16}
+    resumed = cli_train.main(args + ["--load_weights_folder", last,
+                                     "--num_epochs", "2"])
+    assert resumed.step == 4
+    assert "remat on at batch 2" in capsys.readouterr().out
 
 
 def test_cli_train_one_epoch(kitti_tree, capsys):
