@@ -128,6 +128,18 @@ without printing the final ok line:
    with --robust_train --param_dtype bfloat16 --num_depth_bins 4 --dcn
    (its start-up lines) and a resume from ``last``.
 
+16. the remaining modules, this slice's path: the modules and functions
+   that no pipeline path runs, at 640x192, batch 2, float32, on the card
+   against the same module, weights and inputs on the CPU (the tolerance
+   printed), each with its device ms: upsample_nearest_2x, the per-pixel
+   transforms (transformation_from_parameters_v2, project_per_pixel),
+   project_pixel, schedule_depth_bins_v1 (plain, geo-masked, z-scaled),
+   mvs_ssim, update_flow, depth_grid, ContextEncoder, PoseCNN, FPN3cas,
+   MPMDecoder, DepthDecoder3D, DepthDecoderBin, DepthDecoder3Head,
+   ResBlockWDSR and ContextAdjustmentLayer over phase 4's ResNet18
+   features; flowvis's image and a PLY point cloud (host numpy) from the
+   card's outputs against those from the CPU's.
+
 After each phase a ``[time]`` line gives the seconds since the start.
 
 Kernel times (``ms``) are device times: many bare launches (the typed C
@@ -3241,6 +3253,181 @@ def phase_robust_train(root, card):
     return launches
 
 
+def _tensors(out):
+    """The tensors of a module's output (a tensor, or tuples, lists and
+    dicts of them), in a fixed order."""
+    if isinstance(out, dict):
+        return [t for k in sorted(out, key=str) for t in _tensors(out[k])]
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _tensors(o)]
+    return [out]
+
+
+def _module_on_card(name, cpu_fn, card_fn, card, rel=1e-4):
+    """Run ``cpu_fn`` and ``card_fn`` (the same module, weights and inputs
+    on the CPU and on the card) under no_grad; raise unless every output
+    is finite, of the CPU's shape, and within ``rel`` of max(1, |CPU|)
+    (tests/test_torch_port_models.py's gate); log the worst difference,
+    the tolerance and the card's device ms a call. Returns (the card's
+    outputs, the CPU's), flattened by :func:`_tensors`."""
+    import torch
+    with torch.no_grad():
+        want, got = _tensors(cpu_fn()), _tensors(card_fn())
+        worst, tol = 0.0, 0.0
+        for g, w in zip(got, want, strict=True):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                raise RuntimeError(f"16: {name} gave {tuple(g.shape)} "
+                                   f"(CPU {tuple(w.shape)}) or non-finite "
+                                   "values on the card")
+            t = rel * max(1.0, w.abs().max().item())
+            e = (g.cpu().double() - w.double()).abs().max().item()
+            if not e <= t:
+                raise RuntimeError(f"16: {name} card vs CPU max_abs {e:.3e}"
+                                   f" > {t:.3e}")
+            worst, tol = max(worst, e), max(tol, t)
+        ms = plain_ms(card_fn)
+    log(f"[16] {name}: card vs CPU max_abs {worst:.3e}, tolerance "
+        f"{tol:.3e} ({rel:g} of max(1, |CPU|)); {ms:.4f} ms a call on the "
+        f"card ({card})")
+    return got, want
+
+
+def _to_card(args):
+    import torch
+    return [[a.cuda() for a in x] if isinstance(x, list) else
+            x.cuda() if isinstance(x, torch.Tensor) else x for x in args]
+
+
+def _ply_points(path):
+    import numpy as np
+    with open(path) as f:
+        lines = f.read().split("end_header\n", 1)[1].splitlines()
+    return np.array([[float(v) for v in ln.split()] for ln in lines])
+
+
+def phase_remaining_modules(cpu_models, card):
+    """16: the modules that no pipeline path runs, on the card at 640x192,
+    batch 2, float32 (TF32 off), each against the same module with the
+    same weights and inputs on the CPU: upsample_nearest_2x; the per-pixel
+    transforms, their projection and project_pixel; schedule_depth_bins_v1
+    plain, geo-masked and z-scaled; mvs_ssim; update_flow (flowvis's
+    images and a point cloud written from the card's outputs on the host);
+    ContextEncoder, PoseCNN, FPN3cas and the experimental decoders over
+    phase 4's mono encoder's ResNet18 features; ContextAdjustmentLayer."""
+    import numpy as np
+    import torch
+    from movedepth_tpu_torch import Config
+    from movedepth_tpu_torch import models as M
+    from movedepth_tpu_torch import pipeline as P
+    from movedepth_tpu_torch.models import decoders_extra as DX
+    from movedepth_tpu_torch.ops import costvolume as CV
+    from movedepth_tpu_torch.ops import flowvis as FV
+    from movedepth_tpu_torch.ops import geometry as G
+    from movedepth_tpu_torch.ops import losses as L
+    from movedepth_tpu_torch.ops import pointcloud as PC
+    from movedepth_tpu_torch.ops.sampling import upsample_nearest_2x
+
+    cfg = Config(compute_dtype="float32")
+    b, h, w = 2, cfg.height, cfg.width
+    gen = torch.Generator().manual_seed(16)
+    batch = P.synthetic_batch(cfg, b, seed=0, device="cpu")
+    frames = batch["color"].permute(0, 1, 4, 2, 3)  # (B, F, 3, H, W)
+    img = frames[:, 0].contiguous()
+    with torch.no_grad():
+        feats = cpu_models["mono_encoder"](img)
+
+    def check(name, fn, *args, rel=1e-4):
+        card_args = _to_card(args)
+        return _module_on_card(name, lambda: fn(*args),
+                               lambda: fn(*card_args), card, rel)
+
+    def module(name, m, *args, rel=1e-4):
+        m = m.eval()
+        card_m, card_args = copy.deepcopy(m).cuda(), _to_card(args)
+        return _module_on_card(name, lambda: m(*args),
+                               lambda: card_m(*card_args), card, rel)
+
+    check("upsample_nearest_2x", upsample_nearest_2x, feats[1])
+    K = _kitti_K(b, h, w)
+    inv_K = torch.linalg.inv(K)
+    depth = torch.rand(b, h, w, generator=gen) * 55 + 5
+    points = G.backproject(depth, inv_K)
+    aa = torch.randn(b, 3, generator=gen) * 5e-3
+    trans = torch.randn(b, h, w, 3, generator=gen) * 3e-2
+    T_px = check("transformation_from_parameters_v2",
+                 G.transformation_from_parameters_v2, aa, trans)[1][0]
+    check("project_per_pixel", G.project_per_pixel, points, K, T_px)
+    T = _kitti_pose(b, gen)
+    check("project_pixel", G.project_pixel, points, K, T, h, w)
+    disp = torch.rand(b, h, w, generator=gen) * 0.85 + 0.05
+    v1 = (16, 0.5, 0.1, 100.0)
+    check("schedule_depth_bins_v1", CV.schedule_depth_bins_v1, disp, *v1)
+    check("schedule_depth_bins_v1 geo", lambda d, m: CV.schedule_depth_bins_v1(
+        d, *v1, geo_mask=m, damper=2.0), disp,
+        torch.rand(b, h, w, generator=gen) < 0.5)
+    check("schedule_depth_bins_v1 z", lambda d, z: CV.schedule_depth_bins_v1(
+        d, *v1, z_trans=z), disp, torch.tensor([0.5, 1.5]))
+    nhwc = batch["color"]
+    check("mvs_ssim", L.mvs_ssim, nhwc[:, 0], nhwc[:, 1],
+          (torch.rand(b, h, w, 1, generator=gen) < 0.7).float())
+    grid = G.project(points, K, T, h, w)
+    flow = torch.randn(b, h, w, 2, generator=gen)
+    card_flow, cpu_flow = (o[0] for o in check(
+        "update_flow", FV.update_flow, flow, grid, w, h))
+    t0 = time.perf_counter()
+    got = FV.flow_to_image(card_flow[0].cpu().numpy())
+    host_ms = (time.perf_counter() - t0) * 1e3
+    want = FV.flow_to_image(cpu_flow[0].numpy())
+    levels = int(np.abs(got.astype(int) - want.astype(int)).max())
+    if got.shape != (h, w, 3) or levels > 1:
+        raise RuntimeError(f"16: flow_to_image of the card's flow differs "
+                           f"from the CPU's by {levels} levels")
+    log(f"[16] flow_to_image (host numpy) of the card's update_flow: "
+        f"{levels} levels from the CPU's image (tolerance 1); "
+        f"{host_ms:.1f} ms on the host")
+
+    torch.manual_seed(16)  # the modules' default initialization
+    chans = M.encoder_channels(cfg.res_arch)
+    module("ContextEncoder", M.ContextEncoder(cfg.res_arch), img)
+    module("PoseCNN", M.PoseCNN(3), frames.reshape(b, 9, h, w), rel=1e-6)
+    module("FPN3cas", M.FPN3cas(8), img)
+    _module_on_card("depth_grid", lambda: DX.depth_grid("SID", 96, 0.1, 10.0),
+                    lambda: DX.depth_grid("SID", 96, 0.1, 10.0,
+                                          device="cuda"), card)
+    costvol = torch.rand(b, 16, h // 4, w // 4, generator=gen)
+    module("MPMDecoder", M.MPMDecoder(chans, num_bins=16), costvol, feats)
+    d3 = module("DepthDecoder3D", M.DepthDecoder3D(chans), feats)
+    module("DepthDecoderBin", M.DepthDecoderBin(chans), feats)
+    module("DepthDecoder3Head", M.DepthDecoder3Head(chans), feats)
+    fused = torch.rand(b, 1, h, w, generator=gen) * 55 + 5
+    module("ResBlockWDSR", M.ResBlockWDSR(16),
+           torch.randn(b, 16, h, w, generator=gen), fused / 60)
+    module("ContextAdjustmentLayer", M.ContextAdjustmentLayer(), fused, img)
+
+    # a point cloud from the card's and the CPU's finest depth maps
+    mask = np.zeros((h, w), np.float32)
+    mask[::8, ::8] = 1
+    rgb = (nhwc[0, 0].numpy() * 255).astype(np.uint8)
+    clouds = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, depths in zip(("card", "cpu"), d3):
+            t0 = time.perf_counter()
+            PC.generate_pointcloud([rgb], [depths[0][0, 0].cpu().numpy()],
+                                   f"{tmp}/{tag}.ply", [K[0].numpy()],
+                                   [np.eye(4)], [mask])
+            host_ms = (time.perf_counter() - t0) * 1e3
+            clouds.append(_ply_points(f"{tmp}/{tag}.ply"))
+    got, want = clouds
+    worst = float(np.abs(got - want).max())
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+    if got.shape != (int(mask.sum()), 7) or not worst <= tol:
+        raise RuntimeError(f"16: the card's point cloud {got.shape} differs "
+                           f"from the CPU's by {worst:.3e}")
+    log(f"[16] generate_pointcloud (host numpy) of the card's DepthDecoder3D "
+        f"depths: {len(got)} vertices, max_abs {worst:.3e} from the CPU's "
+        f"(tolerance {tol:.3e}); {host_ms:.1f} ms on the host")
+
+
 def main():
     if sys.argv[1:] == ["--clamp-launches"]:  # phase 7's child process
         _clamp_launches(phase_device())
@@ -3312,6 +3499,8 @@ def main():
         done("15c")
         rt_cli = phase_robust_train(tmp, card)
         done("15d")
+    phase_remaining_modules(cpu_models, card)
+    done("16")
     for rec in train_kernels + l1_kernels:
         if rec["name"] in ddp_cli:
             rec["launches_12a"] = ddp_cli[rec["name"]]

@@ -12,9 +12,11 @@ when it is given, else from the port's ``movedepth_tpu_torch/splits/``
 bundled with the checkout (``data/splits.py``); ``--gt_path`` names the
 GT file directly. ``--load_weights_folder`` is a reference folder of
 per-model ``.pth`` files or a checkpoint folder of the port's trainer
-(its ``adam.pth`` is not read); Orbax checkpoints of the JAX package are
-refused. ``--device`` (default ``cuda``) picks the device; without a card
-the default raises. The CLI prints the four metric tables and then one
+(its ``adam.pth`` is not read). An Orbax checkpoint of the JAX package is
+refused with a pointer to its converter, which runs where JAX is
+installed: ``python scripts/orbax_to_pth.py <orbax dir> <out dir>``, then
+``--load_weights_folder <out dir>``. ``--device`` (default ``cuda``)
+picks the device; without a card the default raises. The CLI prints the four metric tables and then one
 line with the warp-correlate kernel's launches in this evaluation (0 on
 the CPU, where its plain version runs).
 """

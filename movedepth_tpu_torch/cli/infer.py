@@ -14,8 +14,10 @@ Intrinsics default to the normalized KITTI K at the processed size;
 ``--fx`` etc. (in pixels at that size) override them.
 
 ``--load_weights_folder`` is a reference folder of per-model ``.pth``
-files (or a checkpoint folder of the port's trainer). Orbax checkpoints of
-the JAX package are not ported yet (ROADMAP).
+files (or a checkpoint folder of the port's trainer). An Orbax checkpoint
+of the JAX package is converted first, where JAX is installed:
+``python scripts/orbax_to_pth.py <orbax dir> <out dir>``, then
+``--load_weights_folder <out dir>``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch import pipeline as P
 from movedepth_tpu_torch.models import build_models
 from movedepth_tpu_torch.ops.colormap import colormap
+from movedepth_tpu_torch.train.checkpoints import check_loadable
 from movedepth_tpu_torch.weights import load_reference_folder
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
@@ -59,10 +62,10 @@ def load_models(cfg: Config, device):
     folder = cfg.load_weights_folder
     if folder is None:
         raise SystemExit("--load_weights_folder is required")
-    if not any(f.endswith(".pth") for f in os.listdir(folder)):
-        raise SystemExit(f"{folder} holds no .pth files: the PyTorch port "
-                         "loads reference .pth folders only (Orbax "
-                         "checkpoints need the JAX package)")
+    try:
+        check_loadable(folder)
+    except (OSError, ValueError) as e:
+        raise SystemExit(str(e)) from None
     models = build_models(cfg, device)
     load_reference_folder(folder, {n: models[n] for n in cfg.models_to_load
                                    if n in models})

@@ -9,16 +9,23 @@ import torch
 import torch.nn as nn
 
 from movedepth_tpu_torch.config import Config
+from movedepth_tpu_torch.models.decoders_extra import (
+    ContextAdjustmentLayer, DepthDecoder3D, DepthDecoder3Head,
+    DepthDecoderBin, MPMDecoder, ResBlockWDSR)
 from movedepth_tpu_torch.models.depth_decoder import DepthDecoder, UncertNet
 from movedepth_tpu_torch.models.fpn import (FPN4, ConvexUpsampleHead,
-                                            DCNConv2d, Reg2D, Reg3D)
-from movedepth_tpu_torch.models.pose_decoder import PoseDecoder
-from movedepth_tpu_torch.models.resnet import ResNetEncoder, encoder_channels
+                                            DCNConv2d, FPN3cas, Reg2D, Reg3D)
+from movedepth_tpu_torch.models.pose_decoder import PoseCNN, PoseDecoder
+from movedepth_tpu_torch.models.resnet import (ContextEncoder, ResNetEncoder,
+                                               encoder_channels)
 from movedepth_tpu_torch.models.storage import param_dtype, store_parameters
 
-__all__ = ["ResNetEncoder", "encoder_channels", "DepthDecoder", "UncertNet",
-           "PoseDecoder", "FPN4", "Reg3D", "Reg2D", "DCNConv2d",
-           "ConvexUpsampleHead", "build_models"]
+__all__ = ["ResNetEncoder", "ContextEncoder", "encoder_channels",
+           "DepthDecoder", "UncertNet", "PoseDecoder", "PoseCNN", "FPN4",
+           "FPN3cas", "Reg3D", "Reg2D", "DCNConv2d", "ConvexUpsampleHead",
+           "MPMDecoder", "DepthDecoder3D", "DepthDecoderBin",
+           "DepthDecoder3Head", "ContextAdjustmentLayer", "ResBlockWDSR",
+           "build_models"]
 
 
 def _init_weights(module: nn.Module, generator: torch.Generator):

@@ -1,5 +1,6 @@
-"""MVS matching encoder and cost-volume regularizers (port of
-movedepth_tpu/models/fpn.py), in the reference's module structure."""
+"""MVS matching encoders (FPN4, the cascade FPN3cas) and cost-volume
+regularizers (port of movedepth_tpu/models/fpn.py), in the reference's
+module structure."""
 
 from __future__ import annotations
 
@@ -20,6 +21,21 @@ def _up2(x):
                            align_corners=True)
 
 
+def _add_trunk(module, bc):
+    """The FPNs' four ConvBNReLU stages ``conv0``-``conv3`` (strides 1, 2,
+    4 and 8; base ``bc`` channels times 1, 2, 4 and 8) on ``module``."""
+    module.conv0 = nn.Sequential(ConvBNReLU(3, bc, 3), ConvBNReLU(bc, bc, 3))
+
+    def stage(cin, cout):
+        return nn.Sequential(ConvBNReLU(cin, cout, 5, 2),
+                             ConvBNReLU(cout, cout, 3),
+                             ConvBNReLU(cout, cout, 3))
+
+    module.conv1 = stage(bc, bc * 2)
+    module.conv2 = stage(bc * 2, bc * 4)
+    module.conv3 = stage(bc * 4, bc * 8)
+
+
 class FPN4(nn.Module):
     """4-stage FPN over NCHW images -> (matching feature, context feature).
 
@@ -36,16 +52,7 @@ class FPN4(nn.Module):
         bc = base_channels
         self.scale = scale
         self.dcn = dcn
-        self.conv0 = nn.Sequential(ConvBNReLU(3, bc, 3), ConvBNReLU(bc, bc, 3))
-
-        def stage(cin, cout):
-            return nn.Sequential(ConvBNReLU(cin, cout, 5, 2),
-                                 ConvBNReLU(cout, cout, 3),
-                                 ConvBNReLU(cout, cout, 3))
-
-        self.conv1 = stage(bc, bc * 2)
-        self.conv2 = stage(bc * 2, bc * 4)
-        self.conv3 = stage(bc * 4, bc * 8)
+        _add_trunk(self, bc)
         final = bc * 8
         if scale < 3:
             self.inner1 = nn.Conv2d(bc * 4, final, 1, bias=True)
@@ -81,6 +88,36 @@ class FPN4(nn.Module):
         if self.dcn and self.scale < 3:
             out = self.out_dcn_2(self.out_dcn_1(self.out_dcn_0(out)))
         return out, ctx
+
+
+class FPN3cas(nn.Module):
+    """The cascade FPN: FPN4's trunk with every lateral -> matching
+    features at 1/4, 1/2 and 1/1 resolution with base*4, base*2 and base
+    channels (``out1``-``out3``)."""
+
+    def __init__(self, base_channels=8):
+        super().__init__()
+        bc = base_channels
+        _add_trunk(self, bc)
+        final = bc * 8
+        self.inner1 = nn.Conv2d(bc * 4, final, 1, bias=True)
+        self.inner2 = nn.Conv2d(bc * 2, final, 1, bias=True)
+        self.inner3 = nn.Conv2d(bc, final, 1, bias=True)
+        self.out1 = nn.Conv2d(final, bc * 4, 3, padding=1, bias=False)
+        self.out2 = nn.Conv2d(final, bc * 2, 3, padding=1, bias=False)
+        self.out3 = nn.Conv2d(final, bc, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        conv0 = self.conv0(x)
+        conv1 = self.conv1(conv0)
+        conv2 = self.conv2(conv1)
+        conv3 = self.conv3(conv2)
+        intra = _up2(conv3) + self.inner1(conv2)
+        out1 = self.out1(intra)
+        intra = _up2(intra) + self.inner2(conv1)
+        out2 = self.out2(intra)
+        intra = _up2(intra) + self.inner3(conv0)
+        return [out1, out2, self.out3(intra)]
 
 
 class Reg3D(nn.Module):

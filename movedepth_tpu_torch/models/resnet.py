@@ -79,29 +79,36 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity, inplace=True)
 
 
+def _stem_and_stages(arch, num_input_images, stages):
+    """torchvision's ``conv1``, ``bn1`` and the first ``stages`` stages
+    (``layer1``...) of ResNet ``arch``, as attributes of one module."""
+    if arch not in RESNET_BLOCKS:
+        raise ValueError(f"ResNet{arch}: res_arch must be one of "
+                         f"{sorted(RESNET_BLOCKS)}")
+    kind, layers = RESNET_BLOCKS[arch]
+    block = BasicBlock if kind == "basic" else Bottleneck
+    enc = nn.Module()
+    enc.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, 2, 3, bias=False)
+    enc.bn1 = nn.BatchNorm2d(64)
+    cin = 64
+    for stage, (planes, n) in enumerate(zip((64, 128, 256, 512),
+                                            layers[:stages])):
+        blocks = []
+        for i in range(n):
+            stride = 2 if stage > 0 and i == 0 else 1
+            blocks.append(block(cin, planes, stride))
+            cin = planes * block.expansion
+        setattr(enc, f"layer{stage + 1}", nn.Sequential(*blocks))
+    return enc
+
+
 class ResNetEncoder(nn.Module):
     """5-level feature pyramid: features at strides 2, 4, 8, 16, 32 with
     ``encoder_channels(arch)`` channels. Normalizes (x - 0.45) / 0.225."""
 
     def __init__(self, arch=18, num_input_images=1):
         super().__init__()
-        if arch not in RESNET_BLOCKS:
-            raise ValueError(f"ResNet{arch}: res_arch must be one of "
-                             f"{sorted(RESNET_BLOCKS)}")
-        kind, layers = RESNET_BLOCKS[arch]
-        block = BasicBlock if kind == "basic" else Bottleneck
-        enc = nn.Module()
-        enc.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, 2, 3, bias=False)
-        enc.bn1 = nn.BatchNorm2d(64)
-        cin = 64
-        for stage, (planes, n) in enumerate(zip((64, 128, 256, 512), layers)):
-            blocks = []
-            for i in range(n):
-                stride = 2 if stage > 0 and i == 0 else 1
-                blocks.append(block(cin, planes, stride))
-                cin = planes * block.expansion
-            setattr(enc, f"layer{stage + 1}", nn.Sequential(*blocks))
-        self.encoder = enc
+        self.encoder = _stem_and_stages(arch, num_input_images, 4)
 
     def forward(self, x):
         enc = self.encoder
@@ -112,3 +119,18 @@ class ResNetEncoder(nn.Module):
             x = layer(x)
             feats.append(x)
         return feats
+
+
+class ContextEncoder(nn.Module):
+    """The stem and the first stage of ResNet ``arch`` -> one stride-4
+    feature (64 channels; 256 for the bottleneck encoders), with the
+    encoder's ``encoder.*`` state_dict keys and input normalization."""
+
+    def __init__(self, arch=18, num_input_images=1):
+        super().__init__()
+        self.encoder = _stem_and_stages(arch, num_input_images, 1)
+
+    def forward(self, x):
+        enc = self.encoder
+        x = F.relu(enc.bn1(enc.conv1((x - 0.45) / 0.225)), inplace=True)
+        return enc.layer1(max_pool_3x3_s2(x))

@@ -38,6 +38,39 @@ def _spread_bins(lo, hi, ndepth, schedule_type):
     return lo + (hi - lo) * itv
 
 
+def schedule_depth_bins_v1(disp, ndepth, scale_fac, min_depth, max_depth,
+                           schedule_type="inverse", is_depth=False,
+                           geo_mask=None, damper=1.0, z_trans=None):
+    """The v1 range scheduler (disparity or depth (B, H, W) -> (B, D, H,
+    W)), kept beside the functions below that superseded it.
+
+    A band of half-width ``itv * fac * D / 2`` around the depth from
+    ``disp`` (``is_depth``: ``disp`` is that depth), with itv = (the
+    image's max - min) / 96, clamped into the image's [min, max]. Where
+    ``geo_mask`` holds, fac is ``scale_fac / damper``; ``z_trans`` (B,)
+    scales the band per image. No gradient flows to ``disp``.
+    """
+    disp = disp.detach()
+    if is_depth:
+        center = disp
+    else:
+        center = 1.0 / (1.0 / max_depth
+                        + disp * (1.0 / min_depth - 1.0 / max_depth))
+    flat = center.reshape(center.shape[0], -1)
+    dmax = flat.max(dim=1).values[:, None, None]
+    dmin = flat.min(dim=1).values[:, None, None]
+    itv = (dmax - dmin) / 96.0  # the reference's constant
+    fac = torch.full_like(center, scale_fac)
+    if geo_mask is not None:
+        fac = torch.where(geo_mask, fac / damper, fac)
+    half = itv * fac * ndepth / 2.0
+    if z_trans is not None:
+        half = half * z_trans.detach()[:, None, None]
+    lo = torch.maximum(center - half, dmin)
+    hi = torch.minimum(center + half, dmax)
+    return _spread_bins(lo, hi, ndepth, schedule_type)
+
+
 def schedule_depth_bins(prior_depth, ndepth, scale_fac,
                         schedule_type="inverse"):
     """Candidates in [prior/(1+fac), prior*(1+fac)]: (B,H,W) -> (B,D,H,W)."""

@@ -64,6 +64,32 @@ def transformation_from_parameters(axisangle, translation, invert=False):
     return R @ T if invert else T @ R
 
 
+def transformation_from_parameters_v2(axisangle, translation, invert=False):
+    """Per-pixel transforms: a global axis-angle (B, 3) and a dense
+    translation field (B, H, W, 3) -> (B, H, W, 4, 4), each pixel's
+    T @ R (or with ``invert`` R^T @ T(-t))."""
+    R = rot_from_axisangle(axisangle)[:, None, None]  # (B, 1, 1, 4, 4)
+    t = translation
+    if invert:
+        R = R.transpose(-1, -2)
+        t = -t
+    T = get_translation_matrix(t)  # (B, H, W, 4, 4)
+    return R @ T if invert else T @ R
+
+
+def project_per_pixel(points, K, T, eps=1e-7):
+    """Project camera points (B, 4, H*W) through per-pixel transforms T
+    (B, H, W, 4, 4) and K (B, 4, 4) -> normalized grid (B, H, W, 2)."""
+    b, h, w = T.shape[0], T.shape[1], T.shape[2]
+    P = (K[:, None, None] @ T)[..., :3, :]  # (B, H, W, 3, 4)
+    pts = points.transpose(-1, -2).reshape(b, h, w, 4, 1)
+    cam = (P @ pts)[..., 0]  # (B, H, W, 3)
+    xy = cam[..., :2] / (cam[..., 2:3] + eps)
+    x = xy[..., 0] / (w - 1)
+    y = xy[..., 1] / (h - 1)
+    return (torch.stack([x, y], dim=-1) - 0.5) * 2.0
+
+
 def pixel_grid(height, width, dtype=torch.float32, device=None):
     """Homogeneous pixel grid (3, H*W) with rows (x, y, 1)."""
     ys, xs = torch.meshgrid(torch.arange(height, device=device),
@@ -83,13 +109,19 @@ def backproject(depth, inv_K):
     return torch.cat([cam, ones], dim=-2)
 
 
-def project(points, K, T, height, width, eps=1e-7):
-    """Project homogeneous points (..., 4, H*W) into a camera -> normalized
-    grid (..., H, W, 2) in [-1, 1] (align_corners=True convention)."""
+def project_pixel(points, K, T, height, width, eps=1e-7):
+    """:func:`project` in pixel coordinates: (sx, sy), each (..., H, W),
+    the align_corners=True pixel positions that ``project`` normalizes."""
     P = (K @ T)[..., :3, :]
     cam = P @ points  # (..., 3, HW)
     xy = cam[..., :2, :] / (cam[..., 2:3, :] + eps)
-    x = xy[..., 0, :] / (width - 1)
-    y = xy[..., 1, :] / (height - 1)
-    grid = (torch.stack([x, y], dim=-1) - 0.5) * 2.0
-    return grid.reshape(grid.shape[:-2] + (height, width, 2))
+    shape = xy.shape[:-2] + (height, width)
+    return xy[..., 0, :].reshape(shape), xy[..., 1, :].reshape(shape)
+
+
+def project(points, K, T, height, width, eps=1e-7):
+    """Project homogeneous points (..., 4, H*W) into a camera -> normalized
+    grid (..., H, W, 2) in [-1, 1] (align_corners=True convention)."""
+    sx, sy = project_pixel(points, K, T, height, width, eps)
+    return (torch.stack([sx / (width - 1), sy / (height - 1)], dim=-1)
+            - 0.5) * 2.0

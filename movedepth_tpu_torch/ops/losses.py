@@ -20,26 +20,45 @@ def entropy(volume, dim, keepdim=False):
     return torch.sum(-volume * torch.log(clamped), dim=dim, keepdim=keepdim)
 
 
-def ssim(x, y):
-    """Structural dissimilarity map clamp((1 - SSIM) / 2, 0, 1) of NHWC
-    images in [0, 1]: reflection padding by 1, then 3x3 mean pooling."""
+def _ssim_terms(x, y):
+    """SSIM's numerator and denominator over 3x3 VALID windows of NCHW
+    images."""
     c1 = 0.01 ** 2
     c2 = 0.03 ** 2
-    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
-    yp = F.pad(y.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
 
     def pool(t):
         return F.avg_pool2d(t, 3, 1)
 
-    mu_x = pool(xp)
-    mu_y = pool(yp)
-    sigma_x = pool(xp * xp) - mu_x * mu_x
-    sigma_y = pool(yp * yp) - mu_y * mu_y
-    sigma_xy = pool(xp * yp) - mu_x * mu_y
+    mu_x = pool(x)
+    mu_y = pool(y)
+    sigma_x = pool(x * x) - mu_x * mu_x
+    sigma_y = pool(y * y) - mu_y * mu_y
+    sigma_xy = pool(x * y) - mu_x * mu_y
     ssim_n = (2 * mu_x * mu_y + c1) * (2 * sigma_xy + c2)
     ssim_d = (mu_x * mu_x + mu_y * mu_y + c1) * (sigma_x + sigma_y + c2)
+    return ssim_n, ssim_d
+
+
+def ssim(x, y):
+    """Structural dissimilarity map clamp((1 - SSIM) / 2, 0, 1) of NHWC
+    images in [0, 1]: reflection padding by 1, then 3x3 mean pooling."""
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    yp = F.pad(y.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    ssim_n, ssim_d = _ssim_terms(xp, yp)
     out = torch.clamp((1 - ssim_n / ssim_d) / 2, 0.0, 1.0)
     return out.permute(0, 2, 3, 1)
+
+
+def mvs_ssim(x, y, mask):
+    """Masked SSIM without padding, over VALID 3x3 windows, of NHWC images
+    x, y (B, H, W, C) and a mask (B, H, W, 1) -> (the dissimilarity map
+    times the pooled mask (B, H-2, W-2, C), the pooled mask (B, H-2, W-2,
+    1))."""
+    ssim_n, ssim_d = _ssim_terms(x.permute(0, 3, 1, 2),
+                                 y.permute(0, 3, 1, 2))
+    pooled = F.avg_pool2d(mask.to(x.dtype).permute(0, 3, 1, 2), 3, 1)
+    out = pooled * torch.clamp((1 - ssim_n / ssim_d) / 2, 0.0, 1.0)
+    return out.permute(0, 2, 3, 1), pooled.permute(0, 2, 3, 1)
 
 
 def reprojection_loss(pred, target, ssim_lw=0.85, use_ssim=True):

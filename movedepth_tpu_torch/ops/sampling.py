@@ -1,4 +1,4 @@
-"""Bilinear resizing (port of ``resize_bilinear`` in
+"""Resizing (port of ``resize_bilinear`` and ``upsample_nearest_2x`` in
 movedepth_tpu/ops/sampling.py) with torch's coordinate conventions."""
 
 from __future__ import annotations
@@ -15,3 +15,9 @@ def resize_bilinear(img, out_hw, align_corners=False):
         return resize_bilinear(img[:, None], out_hw, align_corners)[:, 0]
     return F.interpolate(img, size=tuple(out_hw), mode="bilinear",
                          align_corners=align_corners)
+
+
+def upsample_nearest_2x(img):
+    """``F.interpolate(scale_factor=2, mode='nearest')`` of (B, C, H, W)
+    tensors: every pixel repeated over a 2x2 block."""
+    return F.interpolate(img, scale_factor=2, mode="nearest")

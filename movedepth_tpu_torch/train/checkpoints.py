@@ -7,7 +7,9 @@ snapshot) or ``models/last`` with one ``<model>.pth`` state_dict per model
 input ``height`` and ``width``, as the reference's does) and ``adam.pth``:
 the optimizer's and the schedule's state and the step. Such a folder is a
 reference ``.pth`` folder: ``weights.load_reference_folder`` reads it as it
-is. Orbax checkpoints of the JAX package need JAX and do not load here.
+is. An Orbax checkpoint of the JAX package needs JAX to read: where JAX
+is installed, ``python scripts/orbax_to_pth.py <orbax dir> <out dir>``
+converts it into such a folder, which then loads here unconverted.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch.weights import load_reference_folder
 
 OPTIMIZER_FILE = "adam.pth"
+# what an Orbax checkpoint directory holds beside its arrays
+ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA")
 
 
 def checkpoint_dir(log_path: str, epoch: Optional[int] = None,
@@ -48,10 +52,11 @@ def save_checkpoint(log_path: str, models: Mapping[str, torch.nn.Module],
                     optimizer, schedule, step: int, cfg: Config,
                     epoch: Optional[int] = None,
                     snapshot_step: Optional[int] = None,
-                    last: bool = False) -> str:
+                    last: bool = False, folder: Optional[str] = None) -> str:
     """Write every model's state_dict and ``adam.pth`` into a checkpoint
-    folder (see the module docstring); returns the folder."""
-    path = checkpoint_dir(log_path, epoch, snapshot_step, last)
+    folder (see the module docstring), or into ``folder`` when it is given;
+    returns the folder."""
+    path = folder or checkpoint_dir(log_path, epoch, snapshot_step, last)
     os.makedirs(path, exist_ok=True)
     for name, model in models.items():
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -65,14 +70,22 @@ def save_checkpoint(log_path: str, models: Mapping[str, torch.nn.Module],
 
 
 def check_loadable(folder: str):
-    """Raise unless ``folder`` holds ``.pth`` files."""
+    """Raise unless ``folder`` holds ``.pth`` files; for an Orbax
+    checkpoint of the JAX package, say so and how to convert it."""
     if not os.path.isdir(folder):
         raise FileNotFoundError(f"no checkpoint folder {folder}")
-    if not any(f.endswith(".pth") for f in os.listdir(folder)):
+    names = os.listdir(folder)
+    if any(f.endswith(".pth") for f in names):
+        return
+    if any(m in names for m in ORBAX_MARKERS):
         raise ValueError(
-            f"{folder} holds no .pth files: it is not a reference .pth "
-            "folder. Orbax checkpoints of the JAX package need JAX and do "
-            "not load in the PyTorch port (ROADMAP Queue 1, tag 7b).")
+            f"{folder} is an Orbax checkpoint of the JAX package, which the "
+            "PyTorch port does not read: convert it where JAX is installed, "
+            f"with `python scripts/orbax_to_pth.py {folder} <out dir>` (it "
+            "reads opt.json beside the checkpoint, or --config), and load "
+            "<out dir> instead")
+    raise ValueError(f"{folder} holds no .pth files: it is not a reference "
+                     ".pth folder or a checkpoint of the port")
 
 
 def load_models(folder: str, models: Mapping[str, torch.nn.Module],

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import glob
 import os
+import re
 from collections.abc import Mapping as MappingABC
 from typing import Dict, Mapping
 
@@ -29,7 +30,14 @@ _FIXED_NAMES = {
     "mask_cnn": {"conv1": "conv1.0", "bn1": "conv1.1", "conv2": "conv2.0",
                  "bn2": "conv2.1", "head": "head_convs"},
     "up": {"mask0": "upsample_mask.0", "mask1": "upsample_mask.2"},
+    # monodepth2's pose_cnn.py: the seven convs in ``net``, then pose_conv
+    "PoseCNN": dict({f"convs_{i}": f"net.{i}" for i in range(7)},
+                    pose_conv="pose_conv"),
 }
+# models whose state_dict names are their flax paths dotted by _attr
+_DOTTED = ("mvs_encoder", "reg3d", "FPN3cas", "MPMDecoder", "DepthDecoder3D",
+           "DepthDecoderBin", "DepthDecoder3Head", "ResBlockWDSR",
+           "ContextAdjustmentLayer")
 _TRANSPOSED = ("conv7_0", "conv9_0", "conv11_0")  # Reg3D's ConvTranspose3d
 
 
@@ -45,20 +53,22 @@ def _leaves(tree, path=()):
 
 
 def _attr(part):
-    """A flax module name as a torch attribute path: conv0_1 -> conv0.1,
-    conv7_0 -> conv7.0; the DCN head's out_dcn_N and conv_offset are
-    attribute names as they are."""
-    if part == "conv_offset" or part.startswith("out_dcn_"):
+    """A flax module name as a torch attribute path: a number or a single
+    letter after an underscore is an index (conv0_1 -> conv0.1,
+    upconv_4_0 -> upconv.4.0, depth_3dcnn_2_a -> depth_3dcnn.2.a); other
+    names stay as they are (conv_offset, reduce_conv), and so does the DCN
+    head's out_dcn_N."""
+    if part.startswith("out_dcn_"):
         return part
-    return part.replace("_", ".")
+    return re.sub(r"_(\d+|[a-z])(?=_|$)", r".\1", part)
 
 
 def _prefix(name, path, scales):
     """Flax module path -> the reference's state_dict prefix."""
     dotted = ".".join(_attr(p) for p in path)
-    if name in ("mono_encoder", "pose_encoder"):
+    if name in ("mono_encoder", "pose_encoder", "ContextEncoder"):
         return "encoder." + dotted  # layer1_0/downsample_0 -> layer1.0...
-    if name in ("mvs_encoder", "reg3d"):
+    if name in _DOTTED:
         return dotted  # conv0_1/bn -> conv0.1.bn, conv7_0 -> conv7.0
     if name == "mono_depth":  # upconv_i_j at 2*(4-i)+j, then dispconv_s
         kind, *idx = path[0].split("_")
@@ -80,10 +90,12 @@ def _kernel_to_torch(kernel, transposed):
 def state_dict_from_jax(name: str, variables: Mapping,
                         scales=(0, 1, 2, 3)) -> Dict[str, torch.Tensor]:
     """One model's flax variables ({'params', 'batch_stats'}, numpy or
-    jax arrays) -> the port's state_dict for model ``name`` (one of
-    ``ALL_MODELS``). A params-only tree (gradients, or parameters after an
-    optimizer update) gives the parameters alone, without BatchNorm
-    running statistics."""
+    jax arrays) -> the port's state_dict for model ``name``: one of
+    ``ALL_MODELS``, or the class name of a module outside the pipeline
+    (``ContextEncoder``, ``PoseCNN``, ``FPN3cas`` and those of
+    ``models/decoders_extra.py``). A params-only tree (gradients, Adam's
+    moments, or parameters after an optimizer update) gives the parameters
+    alone, without BatchNorm running statistics."""
     stats = variables.get("batch_stats")
     out = {}
     for path, node in _leaves(variables["params"]):

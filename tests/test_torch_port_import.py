@@ -37,13 +37,15 @@ def _python(code_or_args, cwd=REPO):
 
 def test_port_imports_no_jax():
     """Importing every module of the port loads nothing of the JAX package
-    (not even its jax-free modules) and no jax, jaxlib or flax."""
+    (not even its jax-free modules) and no jax, jaxlib, flax, optax or
+    orbax."""
     assert "movedepth_tpu_torch.train.trainer" in PORT_MODULES
     assert "movedepth_tpu_torch.data.kitti" in PORT_MODULES
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('movedepth_tpu', 'jax', 'jaxlib', 'flax'))\n"
+            "             ('movedepth_tpu', 'jax', 'jaxlib', 'flax',\n"
+            "              'optax', 'orbax'))\n"
             "assert not bad, bad\n"
             "print('clean')")
     proc = _python(code)
