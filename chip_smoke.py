@@ -611,7 +611,6 @@ def phase_main_path():
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
     from movedepth_tpu_torch.models import build_models
-    from movedepth_tpu_torch.ops import sweep_warp as SW
 
     cfg32 = Config(compute_dtype="float32")
     cpu_models = build_models(cfg32, "cpu", torch.Generator().manual_seed(0))
@@ -623,20 +622,21 @@ def phase_main_path():
     log(f"[main] CPU float32 forward_infer_fused at batch 2: "
         f"{time.perf_counter() - t0:.1f} s")
     gpu_batch = P.as_batch(batch, "cuda")
-    before = SW.launches
+    before = _corr_launches()
     got = P.forward_infer_fused(models, gpu_batch, cfg32)
     torch.cuda.synchronize()
-    if SW.launches != before + 1:
-        raise RuntimeError(f"sweep_warp_corr launched {SW.launches - before}"
-                           " times in one forward, expected 1")
+    if _corr_launches() != before + 1:
+        raise RuntimeError(f"sweep_warp_corr launched "
+                           f"{_corr_launches() - before} times in one "
+                           "forward, expected 1")
     _check_gates("[main]", got, want)
     log(f"[main] float32 gates pass: {GATES}; sweep_warp_corr launched once")
 
     cfg16 = Config()  # compute_dtype bfloat16: models under autocast
-    before = SW.launches
+    before = _corr_launches()
     got16 = P.forward_infer_fused(models, gpu_batch, cfg16)
     torch.cuda.synchronize()
-    if SW.launches != before + 1:
+    if _corr_launches() != before + 1:
         raise RuntimeError("bfloat16 forward did not launch the kernel once")
     for key in ("disp_mono", "cost_prob", "depth_mvs", "depth_fused"):
         if not torch.isfinite(got16[key]).all():
@@ -659,7 +659,6 @@ def phase_group_configs():
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
     from movedepth_tpu_torch.models import build_models
-    from movedepth_tpu_torch.ops import sweep_warp as SW
 
     for prior_scale, groups in ((2, 2), (3, 64)):
         cfg = Config(compute_dtype="float32", prior_scale=prior_scale,
@@ -679,15 +678,16 @@ def phase_group_configs():
         P.sweep_warp_corr = record
         try:
             want = P.forward_infer_fused(cpu_models, batch, cfg)
-            before = SW.launches
+            before = _corr_launches()
             got = P.forward_infer_fused(models, P.as_batch(batch, "cuda"),
                                         cfg)
             torch.cuda.synchronize()
         finally:
             P.sweep_warp_corr = kernel
-        if SW.launches != before + 1:
+        if _corr_launches() != before + 1:
             raise RuntimeError(f"{tag}: sweep_warp_corr launched "
-                               f"{SW.launches - before} times, expected 1")
+                               f"{_corr_launches() - before} times, "
+                               "expected 1")
         scale = costs[0].abs().max().item()
         rel = (costs[1].cpu() - costs[0]).abs().max().item() / scale
         log(f"[groups] {tag}: cost volume {tuple(costs[1].shape)}, card vs "
@@ -708,7 +708,6 @@ def phase_serve(cpu_models):
     import torch
     from PIL import Image
     from movedepth_tpu_torch.cli import infer
-    from movedepth_tpu_torch.ops import sweep_warp as SW
 
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -723,12 +722,12 @@ def phase_serve(cpu_models):
             small = rng.uniform(0, 255, (24, 80, 3)).astype(np.uint8)
             Image.fromarray(small).resize((640, 192), Image.BILINEAR).save(
                 os.path.join(frames, f"{i:010d}.png"))
-        SW.launches = 0
+        before = _corr_launches()
         t0 = time.perf_counter()
         infer.main(["--image_path", frames, "--load_weights_folder", weights,
                     "--out_dir", out, "--fused"])
         torch.cuda.synchronize()
-        launches = SW.launches
+        launches = _corr_launches() - before
         log(f"[serve] cli.infer --fused on 4 frames: "
             f"{time.perf_counter() - t0:.1f} s, sweep_warp_corr launched "
             f"{launches} times")
@@ -754,14 +753,13 @@ def _eval_cli(tag, args):
     import io
     import torch
     from movedepth_tpu_torch.cli import evaluate
-    from movedepth_tpu_torch.ops import sweep_warp as SW
     out = io.StringIO()
-    SW.launches = 0
+    before = _corr_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         results = evaluate.main(args)
     torch.cuda.synchronize()
-    launches = SW.launches
+    launches = _corr_launches() - before
     text = out.getvalue()
     for line in text.splitlines():
         log(f"[eval]   {line}")
@@ -1443,9 +1441,15 @@ def _launch_counts():
 
 
 def _zero_launch_counts():
-    from movedepth_tpu_torch.ops import LAUNCH_COUNTERS
-    for mod, name in LAUNCH_COUNTERS.values():
-        setattr(mod, name, 0)
+    """Every counter of the tracer back to 0 (the launches among them)."""
+    from movedepth_tpu_torch import trace
+    trace.reset()
+
+
+def _corr_launches():
+    """The cost-volume kernel's launches the tracer has counted."""
+    from movedepth_tpu_torch import trace
+    return trace.counter("launch.sweep_warp_corr")
 
 
 def _f32_step(cfg, step_models, step_batch, step_draws):
@@ -2000,14 +2004,15 @@ def phase_variants():
     float32 result (plus 1e-5 of the range). Returns its record."""
     import torch
     from movedepth_tpu_torch import profile_kernel_variants as PKV
+    from movedepth_tpu_torch import trace
     from movedepth_tpu_torch.ops import sweep_warp as SW
 
     inputs = PKV.shipped_inputs(128)
-    PKV.launches = 0
+    before = trace.counter("launch.sweep_warp_corr_variant")
     times = PKV.time_variants(inputs)
     ab = PKV.wrapper_ab(inputs)
     torch.cuda.synchronize()
-    launches = PKV.launches
+    launches = trace.counter("launch.sweep_warp_corr_variant") - before
     log("[variants] batch 128, bfloat16: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in times.items())
         + f" (device, bare launches); one public sweep_warp_corr call "
@@ -2384,7 +2389,6 @@ def phase_export(cpu_models, card):
     import torch
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch.cli import export_model as EM
-    from movedepth_tpu_torch.ops import sweep_warp as SW
 
     t_phase = time.perf_counter()
     cfg = Config()
@@ -2406,10 +2410,10 @@ def phase_export(cpu_models, card):
             inputs = EM.example_inputs(cfg, mono, bsz, "cuda")
             names = EM.OUTPUTS[mono]
             with torch.no_grad():
-                SW.launches = 0
+                before = _corr_launches()
                 got = dict(zip(names, loaded(*inputs)))
                 torch.cuda.synchronize()
-                launched = SW.launches
+                launched = _corr_launches() - before
                 want = dict(zip(names, live(*inputs)))
                 failed, worst = [], {}
                 for name in names:
@@ -2703,7 +2707,6 @@ def phase_variant_paths(card):
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
     from movedepth_tpu_torch.models import build_models
-    from movedepth_tpu_torch.ops import sweep_warp as SW
 
     out = {}
     for tag, kw in (("reg2d", dict(num_depth_bins=4)), ("dcn",
@@ -2717,10 +2720,10 @@ def phase_variant_paths(card):
         models = {k: copy.deepcopy(m).cuda() for k, m in cpu_models.items()}
         batch = P.synthetic_batch(cfg, 1, seed=0, device="cpu")
         want = P.forward_infer_fused(cpu_models, batch, cfg)
-        before = SW.launches
+        before = _corr_launches()
         got = P.forward_infer_fused(models, P.as_batch(batch, "cuda"), cfg)
         torch.cuda.synchronize()
-        infer = SW.launches - before
+        infer = _corr_launches() - before
         if infer != 1:
             raise RuntimeError(f"15a {tag}: sweep_warp_corr launched {infer} "
                                "times in one forward, expected 1")
@@ -3186,7 +3189,7 @@ def phase_remat(card):
             elif not d <= max(5e-3, 2 * e):
                 failed.append(f"replay {i + 1} {n} {kind} rel L2 {d:.3e} "
                               f"(eager {e:.3e})")
-    log(f"[15c] launches per replay {multi.graphs[True].launches}")
+    log(f"[15c] launches per replay {multi.graphs[True].counts}")
     if failed:
         raise RuntimeError("15c: a graphed remat replay is off its eager "
                            "step: " + "; ".join(failed))

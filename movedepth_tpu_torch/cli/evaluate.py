@@ -27,10 +27,10 @@ import argparse
 import json
 import os
 
+from movedepth_tpu_torch import trace
 from movedepth_tpu_torch.cli.infer import load_models
 from movedepth_tpu_torch.cli.options import add_config_args, config_from_args
 from movedepth_tpu_torch.eval.evaluate import check_device, evaluate
-from movedepth_tpu_torch.ops import sweep_warp
 
 
 def main(argv=None):
@@ -51,13 +51,14 @@ def main(argv=None):
     split_dir = (os.path.join(args.splits_dir, cfg.eval_split)
                  if args.splits_dir else None)
     models = load_models(cfg, check_device(args.device))
-    before = sweep_warp.launches
+    before = trace.counter("launch.sweep_warp_corr")
     results = evaluate(models, cfg, cfg.data_path, split_dir,
                        gt_path=args.gt_path, batch_size=cfg.batch_size,
                        limit=args.limit, device=args.device,
                        num_workers=cfg.num_workers)
     print("kernel launches: " + json.dumps(
-        {"sweep_warp_corr": sweep_warp.launches - before}), flush=True)
+        {"sweep_warp_corr": trace.counter("launch.sweep_warp_corr")
+         - before}), flush=True)
     return results
 
 

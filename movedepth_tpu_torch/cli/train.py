@@ -17,8 +17,16 @@ Under torchrun (``WORLD_SIZE`` set) each process joins the process group
 device <d>``; ``--batch_size`` is per process. Without torchrun one
 process trains on one device, and ``--multichip`` with more than one card
 is refused. ``--profile_steps N`` writes a ``torch.profiler`` trace of
-rank 0's steps [2, 2+N) to ``<log_dir>/<model_name>/profile/trace.json``.
-At the end each process prints one line with its kernel launches.
+rank 0's steps [2, 2+N) to ``<log_dir>/<model_name>/profile/trace.json``
+and turns the port's tracer (``movedepth_tpu_torch/trace.py``) on for the
+same steps: beside the trace, ``spans.json`` holds per span (``train.step``,
+``train.forward``, ``train.losses``, ``train.backward``,
+``train.optimizer``, ``trainer.data_wait``, ``trainer.put``,
+``trainer.log``, ``trainer.validate``, ...) its calls, host ms mean and
+max, self host ms and device ms mean, and how much each counter grew
+(kernel launches, ``h2d_bytes``); the ten spans with the most self time
+are printed. In the trace each span is a ``movedepth.<name>`` range. At
+the end each process prints one line with its kernel launches.
 """
 
 from __future__ import annotations
@@ -49,7 +57,8 @@ def main(argv=None):
                              "visible card is refused unless "
                              "--no-multichip")
     parser.add_argument("--profile_steps", type=int, default=0,
-                        help="write a torch.profiler trace of N early steps")
+                        help="write a torch.profiler trace and the "
+                             "tracer's spans.json of N early steps")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)

@@ -6,28 +6,16 @@ Importing this package registers the kernels' ``torch.library`` ops
 (``cli/export_model.py``) imports it before ``torch.export.load``.
 """
 
-from movedepth_tpu_torch.ops import image_warp, sweep_warp
+from movedepth_tpu_torch import trace
+from movedepth_tpu_torch.ops import image_warp, sweep_warp  # noqa: F401
 
-# the train path's kernel launch counters: kernel -> (module, attribute)
-LAUNCH_COUNTERS = {"sweep_warp": (sweep_warp, "warp_launches"),
-                   "sweep_warp_bwd": (sweep_warp, "warp_bwd_launches"),
-                   "warp_images_border": (image_warp, "launches"),
-                   "warp_images_border_coord_bwd": (image_warp,
-                                                    "bwd_launches"),
-                   "warp_images_border_l1": (image_warp, "l1_launches"),
-                   "warp_images_border_l1_coord_bwd": (image_warp,
-                                                       "l1_bwd_launches")}
+# the train path's kernels; each wrapper counts ``launch.<kernel>``
+TRAIN_KERNELS = ("sweep_warp", "sweep_warp_bwd", "warp_images_border",
+                 "warp_images_border_coord_bwd", "warp_images_border_l1",
+                 "warp_images_border_l1_coord_bwd")
 
 
 def kernel_launches() -> dict:
-    """The train path's CUDA kernel launches in this process, by kernel."""
-    return {k: getattr(mod, name)
-            for k, (mod, name) in LAUNCH_COUNTERS.items()}
-
-
-def add_launches(counts: dict):
-    """Add ``counts`` (by kernel, as :func:`kernel_launches` gives them)
-    to the counters: the launches of a CUDA graph's replay, which runs no
-    wrapper."""
-    for k, (mod, name) in LAUNCH_COUNTERS.items():
-        setattr(mod, name, getattr(mod, name) + counts[k])
+    """The train path's CUDA kernel launches in this process (since the
+    tracer's last reset), by kernel: a view of the tracer's counters."""
+    return {k: trace.counter(f"launch.{k}") for k in TRAIN_KERNELS}

@@ -36,13 +36,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from movedepth_tpu_torch import native
-
-# Kernel launches in this process; only the CUDA path counts.
-launches = 0  # forward
-bwd_launches = 0  # coordinate backward
-l1_launches = 0  # forward with the L1 epilogue
-l1_bwd_launches = 0  # coordinate backward with the L1 cotangent
+from movedepth_tpu_torch import native, trace
 
 
 # the C functions' (argtypes, restype), set once when the library loads:
@@ -196,7 +190,6 @@ def _border_fwd(src: torch.Tensor, sx: torch.Tensor,
 
 @_border_fwd.register_kernel("cuda")
 def _border_fwd_cuda(src, sx, sy):
-    global launches
     src, sx, sy = (t.contiguous() for t in (src, sx, sy))
     b, r, w, c = src.shape
     k = sx.shape[1]
@@ -204,7 +197,7 @@ def _border_fwd_cuda(src, sx, sy):
                       device=src.device)
     _launch(kernel_library().warp_images_border_fwd, src, sx, sy, out,
             shape=(b, r, w, k, c))
-    launches += 1
+    trace.count("launch.warp_images_border")
     return out
 
 
@@ -223,7 +216,6 @@ def _border_bwd(src: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
 
 @_border_bwd.register_kernel("cuda")
 def _border_bwd_cuda(src, sx, sy, grad):
-    global bwd_launches
     src, sx, sy = (t.contiguous() for t in (src, sx, sy))
     b, r, w, c = src.shape
     dsx = torch.empty_like(sx)
@@ -231,7 +223,7 @@ def _border_bwd_cuda(src, sx, sy, grad):
     _launch(kernel_library().warp_images_border_bwd, src, sx, sy,
             grad.float().contiguous(), dsx, dsy,
             shape=(b, r, w, sx.shape[1], c))
-    bwd_launches += 1
+    trace.count("launch.warp_images_border_coord_bwd")
     return dsx, dsy
 
 
@@ -265,7 +257,6 @@ def _l1_fwd(src: torch.Tensor, target: torch.Tensor, sx: torch.Tensor,
 
 @_l1_fwd.register_kernel("cuda")
 def _l1_fwd_cuda(src, target, sx, sy):
-    global l1_launches
     src, target, sx, sy = (t.contiguous() for t in (src, target, sx, sy))
     b, r, w, c = src.shape
     k = sx.shape[1]
@@ -274,7 +265,7 @@ def _l1_fwd_cuda(src, target, sx, sy):
     l1 = torch.empty((b, k, r, w), dtype=torch.float32, device=src.device)
     _launch(kernel_library().warp_images_border_l1_fwd, src, target, sx, sy,
             out, l1, shape=(b, r, w, k, c))
-    l1_launches += 1
+    trace.count("launch.warp_images_border_l1")
     return out, l1
 
 
@@ -296,7 +287,6 @@ def _l1_bwd(src: torch.Tensor, target: torch.Tensor, sx: torch.Tensor,
 
 @_l1_bwd.register_kernel("cuda")
 def _l1_bwd_cuda(src, target, sx, sy, grad, grad_l1):
-    global l1_bwd_launches
     src, target, sx, sy = (t.contiguous() for t in (src, target, sx, sy))
     b, r, w, c = src.shape
     dsx = torch.empty_like(sx)
@@ -304,7 +294,7 @@ def _l1_bwd_cuda(src, target, sx, sy, grad, grad_l1):
     _launch(kernel_library().warp_images_border_l1_bwd, src, target, sx, sy,
             grad.float().contiguous(), grad_l1.float().contiguous(), dsx,
             dsy, shape=(b, r, w, sx.shape[1], c))
-    l1_bwd_launches += 1
+    trace.count("launch.warp_images_border_l1_coord_bwd")
     return dsx, dsy
 
 

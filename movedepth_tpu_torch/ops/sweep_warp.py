@@ -26,13 +26,7 @@ import ctypes
 
 import torch
 
-from movedepth_tpu_torch import native
-
-# Kernel launches in this process, one count per kernel. Only the CUDA path
-# counts; a caller that wants the launches of one run sets them to 0 first.
-launches = 0  # sweep_warp_corr
-warp_launches = 0  # sweep_warp forward
-warp_bwd_launches = 0  # sweep_warp backward (source gradient)
+from movedepth_tpu_torch import native, trace
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -202,7 +196,6 @@ def _corr_op(src_feat: torch.Tensor, ref_feat: torch.Tensor,
 
 @_corr_op.register_kernel("cuda")
 def _corr_cuda(src_feat, ref_feat, sx, sy, groups):
-    global launches
     _check_kernel_inputs(src_feat, ref_feat, sx, sy)
     b, r, w, c = src_feat.shape
     _, d, h, _ = sx.shape
@@ -222,7 +215,7 @@ def _corr_cuda(src_feat, ref_feat, sx, sy, groups):
                  torch.cuda.current_stream(src_feat.device).cuda_stream)
     if err:
         raise RuntimeError(f"sweep_warp_corr launch failed: CUDA error {err}")
-    launches += 1
+    trace.count("launch.sweep_warp_corr")
     return out
 
 
@@ -261,13 +254,12 @@ def _warp_fwd(src_feat: torch.Tensor, sx: torch.Tensor,
 
 @_warp_fwd.register_kernel("cuda")
 def _warp_fwd_cuda(src_feat, sx, sy):
-    global warp_launches
     src_feat, sx, sy = (t.contiguous() for t in (src_feat, sx, sy))
     b, d, h, w = sx.shape
     out = torch.empty((b, d, h, w, src_feat.shape[-1]), dtype=src_feat.dtype,
                       device=src_feat.device)
     _warp_kernel("fwd", src_feat, sx, sy, out)
-    warp_launches += 1
+    trace.count("launch.sweep_warp")
     return out
 
 
@@ -285,13 +277,12 @@ def _warp_bwd(grad: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
 
 @_warp_bwd.register_kernel("cuda")
 def _warp_bwd_cuda(grad, sx, sy, rows):
-    global warp_bwd_launches
     b, _, _, w, c = grad.shape
     dsrc = torch.zeros((b, rows, w, c), dtype=torch.float32,
                        device=grad.device)
     _warp_kernel("bwd", grad.contiguous(), sx.contiguous(), sy.contiguous(),
                  dsrc)
-    warp_bwd_launches += 1
+    trace.count("launch.sweep_warp_bwd")
     return dsrc.to(grad.dtype)
 
 

@@ -34,6 +34,8 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from movedepth_tpu_torch import trace
+
 
 def is_distributed() -> bool:
     """True once this process belongs to a process group."""
@@ -157,7 +159,8 @@ def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None,
     256 ranks, so bfloat16 gradients carry them in their own all-reduce):
     a captured step passes ``check=False``,
     and the eager warm-up steps before its capture make the check (a
-    replay cannot change which gradients exist). No-op without a process
+    replay cannot change which gradients exist). The bytes all-reduced
+    are counted as ``all_reduce_bytes``. No-op without a process
     group."""
     if not is_distributed():
         return
@@ -173,6 +176,7 @@ def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None,
             + ([torch.tensor([p.grad is not None for p in same], dtype=dtype,
                              device=same[0].device)] if check else []))
         dist.all_reduce(flat, group=group)
+        trace.count("all_reduce_bytes", flat.numel() * flat.element_size())
         if check:
             counts = flat[-slots:].tolist()
             if any(c not in (0, world) for c in counts):

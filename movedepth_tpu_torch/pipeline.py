@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from movedepth_tpu_torch import trace
 from movedepth_tpu_torch.config import Config
 from movedepth_tpu_torch.data.synthetic import make_batch
 from movedepth_tpu_torch.ops.costvolume import (
@@ -71,11 +72,29 @@ from movedepth_tpu_torch.ops.sweep_warp import (
 from movedepth_tpu_torch.ops.upsample import convex_upsample
 
 
+@trace.traced("pipeline.as_batch")
 def as_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                          torch.Tensor]:
-    """A numpy batch (e.g. from ``make_batch``) as tensors on ``device``."""
-    return {k: torch.from_numpy(np.array(v)).to(device)
-            for k, v in batch.items()}
+    """A numpy batch (e.g. from ``make_batch``) as tensors on ``device``,
+    one array at a time: its host copy (span ``as_batch.host_copy``), then
+    its transfer. Counts the bytes put to the device (``h2d_bytes``) and
+    those of them from pageable memory (``h2d_pageable_bytes``)."""
+    out = {}
+    for k, v in batch.items():
+        with trace.span("as_batch.host_copy"):
+            host = torch.from_numpy(np.array(v))
+        count_h2d((host,))
+        out[k] = host.to(device)
+    return out
+
+
+def count_h2d(tensors):
+    """Count the bytes of host ``tensors`` put to the device: all of them
+    (``h2d_bytes``) and the pageable ones (``h2d_pageable_bytes``)."""
+    tensors = list(tensors)
+    trace.count("h2d_bytes", sum(t.nbytes for t in tensors))
+    trace.count("h2d_pageable_bytes",
+                sum(t.nbytes for t in tensors if not t.is_pinned()))
 
 
 def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,
@@ -198,7 +217,8 @@ def mvs_depth_from_features(models, ref_match, src_matches, depth_bins, K_p,
     frames fuse over the depth axis, as the reference's eval does).
 
     ref_match and each of src_matches: (B, C, h, w) FPN matching features.
-    Returns (depth_mvs (B, h, w), cost_prob (B, D, h, w)).
+    Returns (depth_mvs (B, h, w), cost_prob (B, D, h, w)). Reg3D, the
+    softmax and the decode are the span ``infer.reg3d``.
     """
     h, w = depth_bins.shape[-2:]
     ref = ref_match.permute(0, 2, 3, 1).contiguous()  # NHWC for the kernel
@@ -210,11 +230,12 @@ def mvs_depth_from_features(models, ref_match, src_matches, depth_bins, K_p,
             src.permute(0, 2, 3, 1).contiguous(), ref, sx.contiguous(),
             sy.contiguous(), cfg.reg3d_c))
     cor = fuse_frames(costs, weight_axis="depth")  # (B, D, h, w, G)
-    with _models_ctx(cfg, cor.device):
-        logits = models["reg3d"](cor.permute(0, 4, 1, 2, 3))
-    cost_prob = torch.softmax(logits.float(), dim=1)
-    depth_mvs = localmax(cost_prob, cfg.norm_radius, cfg.num_depth_bins,
-                         1.0 / depth_bins[:, -1], 1.0 / depth_bins[:, 0])
+    with trace.span("infer.reg3d"):
+        with _models_ctx(cfg, cor.device):
+            logits = models["reg3d"](cor.permute(0, 4, 1, 2, 3))
+        cost_prob = torch.softmax(logits.float(), dim=1)
+        depth_mvs = localmax(cost_prob, cfg.norm_radius, cfg.num_depth_bins,
+                             1.0 / depth_bins[:, -1], 1.0 / depth_bins[:, 0])
     return depth_mvs, cost_prob
 
 
@@ -232,35 +253,40 @@ def forward_infer(models, batch, cfg: Config):
     Raw frames, always-z-guided bins with a per-sample z-translation (the
     reference reads batch element 0 only), eval's depth-axis frame
     weighting. The batch carries only the matching frames, so frame
-    indexing runs over ``matching_ids``.
+    indexing runs over ``matching_ids``. Spans: ``infer.mono`` (the mono
+    encoder and decoder), ``infer.mvs`` (FPN4 through the cost volume,
+    Reg3D and the decode).
     """
     cfg = cfg.replace(frame_ids=cfg.matching_ids)
     color = batch["color"]
-    disps = _mono(models, color[:, 0], cfg)
+    with trace.span("infer.mono"):
+        disps = _mono(models, color[:, 0], cfg)
 
     if cfg.load_pose or "relative_pose" in batch:
         rel = poses_from_batch(batch, cfg)
     else:
         rel = predict_poses(models, color, cfg)
 
-    # one FPN call over all frames (exact at inference: running BN stats)
-    b, m = color.shape[0], len(cfg.matching_ids)
-    with _models_ctx(cfg, color.device):
-        match_all, ctx_all = models["mvs_encoder"](
-            _nchw(color[:, :m].reshape((b * m,) + color.shape[2:])))
-    match_all = match_all.view((b, m) + match_all.shape[1:])
-    ref_ctx = ctx_all.view((b, m) + ctx_all.shape[1:])[:, 0]
+    with trace.span("infer.mvs"):
+        # one FPN call over all frames (exact at inference: running BN
+        # stats)
+        b, m = color.shape[0], len(cfg.matching_ids)
+        with _models_ctx(cfg, color.device):
+            match_all, ctx_all = models["mvs_encoder"](
+                _nchw(color[:, :m].reshape((b * m,) + color.shape[2:])))
+        match_all = match_all.view((b, m) + match_all.shape[1:])
+        ref_ctx = ctx_all.view((b, m) + ctx_all.shape[1:])[:, 0]
 
-    _, depth_prior = disp_to_depth(disps[("disp", cfg.prior_scale)],
-                                   cfg.min_depth, cfg.max_depth)
-    z = cfg.z_scale * rel[:, 0, 2, 3]
-    bins = schedule_depth_bins_z(depth_prior, cfg.num_depth_bins,
-                                 cfg.depth_bin_fac, z[:, None, None],
-                                 cfg.schedule_type)
-    K_p = scale_intrinsics(batch["K"], cfg.prior_scale)
-    depth_mvs, cost_prob = mvs_depth_from_features(
-        models, match_all[:, 0], [match_all[:, i] for i in range(1, m)],
-        bins, K_p, torch.linalg.inv(K_p), rel, cfg)
+        _, depth_prior = disp_to_depth(disps[("disp", cfg.prior_scale)],
+                                       cfg.min_depth, cfg.max_depth)
+        z = cfg.z_scale * rel[:, 0, 2, 3]
+        bins = schedule_depth_bins_z(depth_prior, cfg.num_depth_bins,
+                                     cfg.depth_bin_fac, z[:, None, None],
+                                     cfg.schedule_type)
+        K_p = scale_intrinsics(batch["K"], cfg.prior_scale)
+        depth_mvs, cost_prob = mvs_depth_from_features(
+            models, match_all[:, 0], [match_all[:, i] for i in range(1, m)],
+            bins, K_p, torch.linalg.inv(K_p), rel, cfg)
 
     if cfg.convex_up:
         with _models_ctx(cfg, color.device):
@@ -596,7 +622,8 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws,
     ``batch`` and ``draws`` hold this rank's rows) the masked means run
     over the global batch; the BatchNorms do where the models carry
     ``parallel.sync_bn.SyncBatchNorm``. Returns (total loss, losses dict,
-    outputs dict); the losses dict has the JAX package's keys.
+    outputs dict); the losses dict has the JAX package's keys. The MVS
+    masks and the photometric losses are the span ``train.losses``.
 
     Rematerialization, the JAX package's gate: in training (models in
     train mode, gradients on) with more than ``cfg.remat_batch_threshold``
@@ -675,11 +702,12 @@ def forward_train(models, batch, cfg: Config, use_z_bins: bool, draws,
     fused = ((1.0 - trust_full) * depth_mvs_full.detach()
              + trust_full * mono_depth0.detach())
 
-    mvs_mask = compute_mvs_masks(cost_prob, disp0_full, batch, cam_T_cam,
-                                 depth_mvs_full, cfg)
-    losses, warped_log = photometric_losses(
-        disps, depth_mvs_full, fused, batch, cam_T_cam, cfg, draws["noise"],
-        mvs_mask=mvs_mask, group=group, remat=heavy)
+    with trace.span("train.losses"):
+        mvs_mask = compute_mvs_masks(cost_prob, disp0_full, batch,
+                                     cam_T_cam, depth_mvs_full, cfg)
+        losses, warped_log = photometric_losses(
+            disps, depth_mvs_full, fused, batch, cam_T_cam, cfg,
+            draws["noise"], mvs_mask=mvs_mask, group=group, remat=heavy)
     losses["masked_loss"] = masked_loss
     total = (losses["mono_loss"] + losses["masked_loss"]
              + losses["mvs_loss"] + losses["fuse_reproj_loss"])

@@ -27,15 +27,13 @@ import sys
 
 import torch
 
-from movedepth_tpu_torch import native
+from movedepth_tpu_torch import native, trace
 from movedepth_tpu_torch.ops import sweep_warp as SW
 
 # variant -> the stage mask of csrc/sweep_warp_corr.cuh (mdt_swc::Skip)
 VARIANTS = {"full": 0, "no_gather": 1, "no_weights": 2, "no_correlate": 4,
             "no_reduce": 8}
 SHIPPED = dict(R=48, W=160, C=32, D=16, G=16)
-
-launches = 0  # variant kernel launches in this process
 
 
 _SIGNATURES = {"sweep_warp_corr_variant_bf16": (
@@ -52,7 +50,6 @@ def run_variant(name, src, ref, sx, sy, out=None):
     """Launch variant ``name`` on CUDA tensors: src, ref (B, R, W, 32)
     bfloat16, sx, sy (B, D, H, W) float32 -> (B, D, H, W, 16) bfloat16
     (written into ``out`` when given)."""
-    global launches
     if any(t.device.type != "cuda" for t in (src, ref, sx, sy)):
         raise ValueError("the kernel variants run only on a CUDA device")
     if src.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
@@ -73,7 +70,7 @@ def run_variant(name, src, ref, sx, sy, out=None):
             torch.cuda.current_stream(src.device).cuda_stream)
     if err:
         raise RuntimeError(f"variant {name} launch failed: CUDA error {err}")
-    launches += 1
+    trace.count("launch.sweep_warp_corr_variant")
     return out
 
 

@@ -59,7 +59,10 @@ class MetricsLogger:
 
     def log_time(self, epoch: int, batch_idx: int, step: int,
                  duration: float, loss: float):
-        """examples/s and the time left."""
+        """examples/s (the batch over ``duration``, the seconds a step
+        takes: the trainer gives the wall time since its last log, ending
+        at this step's loss read, over the steps taken) and the time
+        left."""
         if self.rank != 0:
             return
         sps = self.batch_size / max(duration, 1e-9)

@@ -23,8 +23,8 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from movedepth_tpu_torch import trace
 from movedepth_tpu_torch.config import Config
-from movedepth_tpu_torch.ops import add_launches, kernel_launches
 from movedepth_tpu_torch.parallel.dist import all_reduce_grads
 from movedepth_tpu_torch.pipeline import forward_train
 
@@ -112,16 +112,23 @@ def _step_body(models, optimizer, batch, cfg, use_z_bins, draws, group,
                check_grads=True):
     """forward_train, backward, the gradient all-reduce, Adam: the part of
     a step that a CUDA graph captures (``check_grads=False``: the
-    all-reduce's host check of which gradients exist stays out)."""
-    total, losses, outputs = forward_train(models, batch, cfg, use_z_bins,
-                                           draws, group)
-    total.backward()
+    all-reduce's host check of which gradients exist stays out). Each
+    phase is a span: ``train.forward``, ``train.backward``,
+    ``train.all_reduce``, ``train.optimizer``."""
+    with trace.span("train.forward"):
+        total, losses, outputs = forward_train(models, batch, cfg,
+                                               use_z_bins, draws, group)
+    with trace.span("train.backward"):
+        total.backward()
     if group is not None:
-        all_reduce_grads(models, group, check_grads)
-    optimizer.step()
+        with trace.span("train.all_reduce"):
+            all_reduce_grads(models, group, check_grads)
+    with trace.span("train.optimizer"):
+        optimizer.step()
     return losses, outputs
 
 
+@trace.traced("train.step")
 def train_step(models, optimizer, schedule, batch, cfg: Config,
                use_z_bins: bool, draws, group=None):
     """One optimizer step: the models in train mode, ``forward_train``,
@@ -131,7 +138,7 @@ def train_step(models, optimizer, schedule, batch, cfg: Config,
     rank's rows) the masked means cover the global batch and the gradients
     are averaged over the ranks before Adam, so every rank takes the step
     of one process at the global batch. Returns (the losses dict, the
-    outputs dict), detached."""
+    outputs dict), detached. The whole call is the span ``train.step``."""
     for m in models.values():
         m.train()
     optimizer.zero_grad(set_to_none=True)
@@ -161,8 +168,10 @@ def _static_draws(draws, device):
 class _StepGraph:
     """One train step captured as a CUDA graph: its static inputs (a batch
     and its draws), the stacked losses it writes, the gradients it owns,
-    and the kernel launches of one replay (read at capture: the wrappers
-    count in Python, which a replay does not run)."""
+    and what the tracer's counters count in one replay (``counts``, read
+    at capture, taken back off the counters then and added per replay:
+    the kernel wrappers and the all-reduce count in Python, which a
+    replay does not run)."""
 
     def __init__(self, models, optimizer, cfg, use_z_bins, group, batch,
                  draws, stream):
@@ -172,7 +181,7 @@ class _StepGraph:
         self.params = [p for name in sorted(models)
                        for p in models[name].parameters()]
         optimizer.zero_grad(set_to_none=True)  # backward allocates in the pool
-        before = kernel_launches()
+        before = trace.counters()
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph, stream=stream):
@@ -183,9 +192,11 @@ class _StepGraph:
                 self.losses = torch.stack([losses[k].detach().float()
                                            for k in self.keys])
         finally:
-            self.launches = {k: n - before[k]
-                             for k, n in kernel_launches().items()}
-            add_launches({k: -n for k, n in self.launches.items()})
+            self.counts = {k: n - before.get(k, 0)
+                           for k, n in trace.counters().items()
+                           if n != before.get(k, 0)}
+            for k, n in self.counts.items():
+                trace.count(k, -n)
         self.grads = [p.grad for p in self.params]
 
     def replay(self, batch, draws):
@@ -200,7 +211,8 @@ class _StepGraph:
         for dst, src in zip(self.draws["noise"], draws["noise"]):
             _copy_in(dst, src)
         self.graph.replay()
-        add_launches(self.launches)
+        for k, n in self.counts.items():
+            trace.count(k, n)
         return self.losses.clone()
 
     def restore_grads(self):

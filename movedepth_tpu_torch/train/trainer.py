@@ -37,6 +37,7 @@ batches runs as single steps.
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import time
 from typing import Dict, Optional
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from movedepth_tpu_torch import pipeline as P
+from movedepth_tpu_torch import trace
 from movedepth_tpu_torch import weights as W
 from movedepth_tpu_torch.config import Config, validate
 from movedepth_tpu_torch.data.kitti import (KITTIDepthDataset,
@@ -104,6 +106,24 @@ def garg_depth_metrics(depth_pred: np.ndarray, depth_gt: np.ndarray,
     if not accs:
         return {}
     return dict(zip(GARG_NAMES, np.mean(accs, 0)))
+
+
+def per_call(summ: dict) -> dict:
+    """A tracer summary as ``spans.json`` holds it: per span its calls,
+    host ms mean and max, self host ms (total), device ms mean (None
+    without events) and parents; every counter."""
+    spans = {}
+    for name, s in summ["spans"].items():
+        spans[name] = {
+            "calls": s["calls"],
+            "host_ms_mean": s["host_ms"] / s["calls"],
+            "host_ms_max": s["host_max_ms"],
+            "self_host_ms": s["self_host_ms"],
+            "device_ms_mean": (s["device_ms"] / s["device_calls"]
+                               if s["device_calls"] else None),
+            "parents": s["parents"],
+        }
+    return {"spans": spans, "counters": dict(summ["counters"])}
 
 
 class Trainer:
@@ -200,9 +220,14 @@ class Trainer:
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.seed + 1)
         self._val_iter = None
-        # torch.profiler trace of rank 0's steps [2, 2 + profile_steps)
+        # (time, steps taken) after the last log: the terminal line's rate
+        self._rate_mark = None
+        self._seconds_per_step = None
+        # torch.profiler trace and the tracer's spans of rank 0's steps
+        # [2, 2 + profile_steps)
         self.profile_steps = profile_steps if rank == 0 else 0
         self._profiler = None
+        self._counters_before = {}
 
     def _startup_line(self) -> str:
         """What reads each dataset (robust_train's offsets included), the
@@ -251,9 +276,12 @@ class Trainer:
 
     # ------------------------------------------------------------- running
 
+    @trace.traced("trainer.put")
     def _put(self, batch):
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in batch.items() if k != "depth_gt"}
+        host = {k: torch.from_numpy(v) for k, v in batch.items()
+                if k != "depth_gt"}
+        P.count_h2d(host.values())
+        return {k: v.to(self.device) for k, v in host.items()}
 
     def _draws(self, rows):
         """This rank's draws for a batch of ``rows`` rows. Ranks draw for
@@ -281,6 +309,8 @@ class Trainer:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._profiler = torch.profiler.profile(activities=activities)
             self._profiler.start()
+            self._counters_before = trace.counters()
+            trace.enable()
         elif self._profiler is not None and (
                 self.step == 2 + self.profile_steps):
             self._stop_profiler()
@@ -297,6 +327,26 @@ class Trainer:
         self._profiler = None
         self.profile_steps = 0
         print(f"profile: {out}/trace.json", flush=True)
+        self._write_spans(os.path.join(out, "spans.json"))
+
+    def _write_spans(self, path):
+        """The tracer's spans of the profiled steps and the counters' growth
+        over them, as ``spans.json``; prints the ten spans with the most
+        self time."""
+        summ = trace.summary()
+        trace.disable()
+        before = self._counters_before
+        summ["counters"] = {k: n - before.get(k, 0)
+                            for k, n in summ["counters"].items()}
+        table = per_call(summ)
+        with open(path, "w") as f:
+            json.dump(table, f, indent=1, sort_keys=True)
+        top = sorted(table["spans"].items(),
+                     key=lambda kv: -kv[1]["self_host_ms"])[:10]
+        print(f"spans: {path}; most self time (host ms, calls):", flush=True)
+        for name, s in top:
+            print(f"  {name}: {s['self_host_ms']:.1f} ({s['calls']})",
+                  flush=True)
 
     def _host_losses(self, losses, outputs, batch):
         """The losses and Garg metrics as floats, means over the ranks."""
@@ -320,19 +370,27 @@ class Trainer:
         D.barrier(self.group)
         return path
 
-    def _log_step(self, batch, losses, outputs, batch_idx, step, seconds,
-                  use_z):
-        host = self._host_losses(losses, outputs, batch)
-        self.logger.log_time(self.epoch, batch_idx, step, seconds,
-                             host["loss"])
-        self.logger.log_scalars("train", host, step)
-        self.logger.log_images("train", batch, outputs, step)
-        self.validate(use_z, step)
+    def _log_step(self, batch, losses, outputs, batch_idx, step, use_z):
+        """Log ``step``: its losses (the read waits for the device), the
+        terminal line, images and one validation batch. The line's rate
+        is the steps taken since the last log over the wall time from the
+        end of that log to this read."""
+        with trace.span("trainer.log"):
+            host = self._host_losses(losses, outputs, batch)
+            t_mark, s_mark = self._rate_mark
+            if self.step > s_mark:
+                self._seconds_per_step = ((time.perf_counter() - t_mark)
+                                          / (self.step - s_mark))
+            self.logger.log_time(self.epoch, batch_idx, step,
+                                 self._seconds_per_step, host["loss"])
+            self.logger.log_scalars("train", host, step)
+            self.logger.log_images("train", batch, outputs, step)
+            self.validate(use_z, step)
+        self._rate_mark = (time.perf_counter(), self.step)
 
     def _single_step(self, batch, batch_idx, use_z):
         """One train_step on a host batch, then its logging and snapshot."""
         cfg = self.cfg
-        t0 = time.time()
         self._profile_tick()
         device_batch = self._put(batch)
         draws = self._draws(batch["color"].shape[0])
@@ -342,8 +400,7 @@ class Trainer:
         step = self.step
         self.step += 1
         if self._log_cadence(batch_idx, step):
-            self._log_step(batch, losses, outputs, batch_idx, step,
-                           time.time() - t0, use_z)
+            self._log_step(batch, losses, outputs, batch_idx, step, use_z)
         if cfg.save_intermediate_models and step % 2000 == 0:
             self.save(epoch=self.epoch, snapshot_step=step)
 
@@ -357,11 +414,9 @@ class Trainer:
         in the JAX package."""
         cfg = self.cfg
         k = len(group)
-        t0 = time.time()
         device_batches = [self._put(b) for b in group]
         draws = [self._draws(b["color"].shape[0]) for b in group]
         losses = self.train_multistep(device_batches, draws, use_z)
-        seconds = (time.time() - t0) / k
         start = self.step
         self.step += k
         for s in range(k):
@@ -370,7 +425,7 @@ class Trainer:
                 outputs = self._train_outputs(device_batches[s], use_z)
                 self._log_step(group[s],
                                {key: v[s] for key, v in losses.items()},
-                               outputs, batch_idx + s, step, seconds, use_z)
+                               outputs, batch_idx + s, step, use_z)
             if cfg.save_intermediate_models and step % 2000 == 0:
                 self.save(epoch=self.epoch, snapshot_step=step)
 
@@ -391,9 +446,10 @@ class Trainer:
         use_z = self.epoch > cfg.ztrans_start_epc
         k = cfg.steps_per_dispatch
         t_epoch = time.perf_counter()
+        self._rate_mark = (t_epoch, self.step)
         n = 0
         batches = self.train_loader.epoch(self.epoch)
-        it = (b for _, b in zip(range(self.steps_per_epoch), batches))
+        it = self._fetch(batches)
         try:
             while True:
                 group = list(itertools.islice(it, k))
@@ -423,7 +479,18 @@ class Trainer:
                   f"{warm} (data loading, logging and validation included)",
                   flush=True)
 
+    def _fetch(self, batches):
+        """The epoch's first ``steps_per_epoch`` batches, each wait for the
+        loader the span ``trainer.data_wait``."""
+        for _ in range(self.steps_per_epoch):
+            with trace.span("trainer.data_wait"):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            yield batch
+
     @torch.no_grad()
+    @trace.traced("trainer.validate")
     def validate(self, use_z, step):
         """One validation batch through ``forward_train`` with the models
         in eval mode, logged at ``step``."""

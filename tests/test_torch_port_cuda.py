@@ -15,12 +15,30 @@ import torch
 
 from movedepth_tpu_torch import Config
 from movedepth_tpu_torch import pipeline as P
+from movedepth_tpu_torch import trace
 from movedepth_tpu_torch.models import build_models
 from movedepth_tpu_torch.ops import sweep_warp as SW
 from movedepth_tpu_torch.ops.costvolume import schedule_depth_bins, sweep_grid
 from movedepth_tpu_torch.ops.geometry import transformation_from_parameters
 
 pytestmark = pytest.mark.cuda
+
+
+SWEEP = ("sweep_warp", "sweep_warp_bwd")
+BORDER = ("warp_images_border", "warp_images_border_coord_bwd")
+L1 = ("warp_images_border_l1", "warp_images_border_l1_coord_bwd")
+
+
+def _launches(*kernels):
+    """The launches the tracer's counters hold: an int for one kernel, a
+    tuple for several."""
+    n = tuple(trace.counter(f"launch.{k}") for k in kernels)
+    return n[0] if len(n) == 1 else n
+
+
+def _grown(before, *kernels):
+    """The launches of ``kernels`` since ``before`` (their counts then)."""
+    return tuple(a - b for a, b in zip(_launches(*kernels), before))
 
 @pytest.fixture
 def device(monkeypatch):
@@ -56,9 +74,9 @@ def test_kernel_matches_plain_version(device, dtype):
     of the float32 result on the same inputs (plus that float32 bound)."""
     src, ref, sx, sy = (t.to(device) for t in _sweep_inputs())
     src, ref = src.to(dtype), ref.to(dtype)
-    before = SW.launches
+    before = _launches("sweep_warp_corr")
     got = SW.sweep_warp_corr(src, ref, sx, sy, 16)
-    assert SW.launches == before + 1
+    assert _launches("sweep_warp_corr") == before + 1
     want = SW.sweep_warp_corr_reference(src.float(), ref.float(), sx, sy, 16)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
@@ -107,10 +125,10 @@ def test_kernel_refuses_pairs_outside_the_rule(device, c, groups):
     ValueError that states the rule, and no launch."""
     src, ref, sx, sy = (t.to(device) for t in _sweep_inputs(h=8, w=16, c=c,
                                                             d=8))
-    before = SW.launches
+    before = _launches("sweep_warp_corr")
     with pytest.raises(ValueError, match="divide"):
         SW.sweep_warp_corr(src, ref, sx, sy, groups)
-    assert SW.launches == before
+    assert _launches("sweep_warp_corr") == before
 
 
 def test_kernel_out_of_frame_gives_exact_zeros(device):
@@ -138,11 +156,11 @@ def test_sweep_warp_kernels_match_plain_version(device, dtype):
     src, sx, sy = (t.to(device) for t in (src.to(dtype), sx, sy))
     g = torch.randn(sx.shape + src.shape[-1:],
                     generator=torch.Generator().manual_seed(1)).to(device)
-    fwd, bwd = SW.warp_launches, SW.warp_bwd_launches
+    before = _launches(*SWEEP)
     leaf = src.clone().requires_grad_()
     got = SW.sweep_warp(leaf, sx, sy)
     (got.float() * g).sum().backward()
-    assert (SW.warp_launches, SW.warp_bwd_launches) == (fwd + 1, bwd + 1)
+    assert _grown(before, *SWEEP) == (1, 1)
     ref_leaf = src.float().clone().requires_grad_()
     want = SW.sweep_warp_reference(ref_leaf, sx, sy)
     (want * g.to(dtype).float()).sum().backward()
@@ -167,10 +185,10 @@ def _check_dsrc(src, sx, sy, seed=1):
     g = torch.randn(sx.shape + src.shape[-1:],
                     generator=torch.Generator().manual_seed(seed))
     g = g.to(src.device, src.dtype)
-    before = SW.warp_bwd_launches
+    before = _launches("sweep_warp_bwd")
     leaf = src.clone().requires_grad_()
     got = torch.autograd.grad(SW.sweep_warp(leaf, sx, sy), leaf, g)[0]
-    launched = SW.warp_bwd_launches - before
+    launched = _launches("sweep_warp_bwd") - before
     ref = src.float().requires_grad_()
     want = torch.autograd.grad(SW.sweep_warp_reference(ref, sx, sy), ref,
                                g.float())[0]
@@ -213,9 +231,9 @@ def test_sweep_warp_fwd_widths(device, c, dtype):
     for b in (2, 1):
         args = [t[:b].contiguous().to(device) for t in (src.to(dtype), sx,
                                                         sy)]
-        before = SW.warp_launches
+        before = _launches("sweep_warp")
         got = SW.sweep_warp(*args)
-        assert SW.warp_launches == before + 1
+        assert _launches("sweep_warp") == before + 1
         want = SW.sweep_warp_reference(args[0].float(), *args[1:])
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == want.shape
@@ -283,11 +301,11 @@ def test_image_warp_kernels_match_plain_version(device):
     src, sx, sy = (t.to(device) for t in _image_inputs())
     g = torch.randn(sx.shape + (3,),
                     generator=torch.Generator().manual_seed(3)).to(device)
-    fwd, bwd = IW.launches, IW.bwd_launches
+    before = _launches(*BORDER)
     x, y = sx.clone().requires_grad_(), sy.clone().requires_grad_()
     got = IW.warp_images_border(src, x, y)
     (got * g).sum().backward()
-    assert (IW.launches, IW.bwd_launches) == (fwd + 1, bwd + 1)
+    assert _grown(before, *BORDER) == (1, 1)
     xr, yr = sx.clone().requires_grad_(), sy.clone().requires_grad_()
     want = IW.warp_images_border_reference(src, xr, yr)
     (want * g).sum().backward()
@@ -313,11 +331,11 @@ def test_image_warp_l1_kernels_match_plain_version(device):
     gl = torch.randn(sx.shape, generator=g)
     src, sx, sy, tgt, gi, gl = (t.to(device) for t in
                                 (src, sx, sy, tgt, gi, gl))
-    fwd, bwd = IW.l1_launches, IW.l1_bwd_launches
+    before = _launches(*L1)
     x, y = sx.clone().requires_grad_(), sy.clone().requires_grad_()
     got, got_l1 = IW.warp_images_border(src, x, y, target=tgt)
     torch.autograd.backward((got, got_l1), (gi, gl))
-    assert (IW.l1_launches, IW.l1_bwd_launches) == (fwd + 1, bwd + 1)
+    assert _grown(before, *L1) == (1, 1)
     xr, yr = sx.clone().requires_grad_(), sy.clone().requires_grad_()
     want, want_l1 = IW.warp_images_border_l1_reference(src, xr, yr, tgt)
     torch.autograd.backward((want, want_l1), (gi, gl))
@@ -392,24 +410,23 @@ def test_image_warp_kernels_edge_shapes(device, case):
     for target in (None, tgt):
         x, y = sx.clone().requires_grad_(), sy.clone().requires_grad_()
         xr, yr = sx.clone().requires_grad_(), sy.clone().requires_grad_()
+        kernels = BORDER if target is None else L1
+        before = _launches(*kernels)
         if target is None:
-            before = (IW.launches, IW.bwd_launches)
             got = (IW.warp_images_border(src, _view_at(x, offset),
                                          _view_at(y, offset)),)
             want = (IW.warp_images_border_reference(src, xr, yr),)
             cot = (gi,)
         else:
-            before = (IW.l1_launches, IW.l1_bwd_launches)
             got = IW.warp_images_border(src, _view_at(x, offset),
                                         _view_at(y, offset), target=target)
             want = IW.warp_images_border_l1_reference(src, xr, yr, target)
             cot = (gi, gl)
         torch.autograd.backward(got, cot)
         torch.autograd.backward(want, cot)
-        after = ((IW.launches, IW.bwd_launches) if target is None
-                 else (IW.l1_launches, IW.l1_bwd_launches))
+        grown = _grown(before, *kernels)
         torch.cuda.synchronize()
-        assert after == (before[0] + 1, before[1] + 1)
+        assert grown == (1, 1)
         assert torch.equal(got[0], want[0])
         pairs = [(x.grad, xr.grad), (y.grad, yr.grad)]
         if target is not None:
@@ -441,7 +458,6 @@ def test_train_step_kernel_l1_card_matches_cpu(device):
     backward launches, the plain border warp none) and the losses equal
     the CPU step's within 1e-3 and the card's kernel_l1=False step's
     within 1e-5."""
-    from movedepth_tpu_torch.ops import image_warp as IW
     from movedepth_tpu_torch.train import state as S
     cfg = Config(height=64, width=96, compute_dtype="float32",
                  kernel_l1=True)
@@ -462,13 +478,10 @@ def test_train_step_kernel_l1_card_matches_cpu(device):
                             False, step_draws)[0]
 
     want = step(cfg, copy.deepcopy(models), batch, draws)
-    counts = (IW.launches, IW.bwd_launches, IW.l1_launches,
-              IW.l1_bwd_launches)
+    counts = _launches(*BORDER, *L1)
     got = step(cfg, {k: copy.deepcopy(m).to(device)
                      for k, m in models.items()}, gpu_batch, gpu_draws)
-    assert (IW.launches - counts[0], IW.bwd_launches - counts[1],
-            IW.l1_launches - counts[2], IW.l1_bwd_launches - counts[3]) \
-        == (0, 0, 2, 2)
+    assert _grown(counts, *BORDER, *L1) == (0, 0, 2, 2)
     off = step(cfg.replace(kernel_l1=False),
                {k: copy.deepcopy(m).to(device) for k, m in models.items()},
                gpu_batch, gpu_draws)
@@ -498,7 +511,6 @@ def test_train_step_card_matches_cpu(device):
     model's gradient within 5e-3 or twice the spread the CPU shows between
     1 thread and all of them, whichever is larger (a float32 gradient of
     this step is fixed only up to the order of its sums)."""
-    from movedepth_tpu_torch.ops import image_warp as IW
     from movedepth_tpu_torch.train import state as S
     cfg = Config(height=64, width=96, compute_dtype="float32")
     models = build_models(cfg, "cpu")
@@ -523,14 +535,11 @@ def test_train_step_card_matches_cpu(device):
         step(one_thread, batch, draws)
     finally:
         torch.set_num_threads(threads)
-    counts = (SW.warp_launches, SW.warp_bwd_launches, IW.launches,
-              IW.bwd_launches)
+    counts = _launches(*SWEEP, *BORDER)
     got = step(gpu_models, {k: v.to(device) for k, v in batch.items()},
                {"box": draws["box"],
                 "noise": [n.to(device) for n in draws["noise"]]})
-    assert (SW.warp_launches - counts[0], SW.warp_bwd_launches - counts[1],
-            IW.launches - counts[2], IW.bwd_launches - counts[3]) \
-        == (1, 1, 2, 2)
+    assert _grown(counts, *SWEEP, *BORDER) == (1, 1, 2, 2)
     for k in want:
         np.testing.assert_allclose(got[k].item(), want[k].item(), rtol=1e-3,
                                    err_msg=k)
@@ -547,10 +556,10 @@ def test_forward_infer_fused_card_matches_cpu(device):
     batch = P.synthetic_batch(cfg, 2, seed=11, device="cpu")
     want = P.forward_infer_fused(models, batch, cfg)
     models = {k: m.to(device) for k, m in models.items()}
-    before = SW.launches
+    before = _launches("sweep_warp_corr")
     got = P.forward_infer_fused(
         models, {k: v.to(device) for k, v in batch.items()}, cfg)
-    assert SW.launches == before + 1
+    assert _launches("sweep_warp_corr") == before + 1
     for key in ("disp_mono", "cost_prob", "trust_mono"):
         np.testing.assert_allclose(got[key].cpu().numpy(),
                                    want[key].numpy(), rtol=1e-4, atol=1e-5)
@@ -571,10 +580,10 @@ def test_forward_infer_fused_card_matches_cpu_group_configs(device,
     batch = P.synthetic_batch(cfg, 1, seed=11, device="cpu")
     want = P.forward_infer_fused(models, batch, cfg)
     models = {k: m.to(device) for k, m in models.items()}
-    before = SW.launches
+    before = _launches("sweep_warp_corr")
     got = P.forward_infer_fused(
         models, {k: v.to(device) for k, v in batch.items()}, cfg)
-    assert SW.launches == before + 1
+    assert _launches("sweep_warp_corr") == before + 1
     for key in ("disp_mono", "cost_prob", "trust_mono"):
         np.testing.assert_allclose(got[key].cpu().numpy(),
                                    want[key].numpy(), rtol=1e-4, atol=1e-5)
@@ -614,10 +623,10 @@ def test_predict_disparities_card_matches_cpu(device, tmp_path):
     want = E.predict_disparities(models, cfg, data, split_dir, 2,
                                  num_workers=2, device="cpu")
     models = {k: m.to(device) for k, m in models.items()}
-    before = SW.launches
+    before = _launches("sweep_warp_corr")
     got = E.predict_disparities(models, cfg, data, split_dir, 2,
                                 num_workers=2, device=device)
-    assert SW.launches - before == 4
+    assert _launches("sweep_warp_corr") - before == 4
     for g, w in zip(got, want):
         assert g.shape == w.shape == (3, 64, 96)
     # the gates of test_forward_infer_fused_card_matches_cpu
@@ -642,14 +651,14 @@ def test_cli_evaluate_launches_on_card(device, tmp_path, capsys):
     weights.mkdir()
     for name, m in build_models(cfg, "cpu").items():
         torch.save(m.state_dict(), weights / f"{name}.pth")
-    SW.launches = 0
+    before = _launches("sweep_warp_corr")
     results = cli.main(["--data_path", data, "--load_weights_folder",
                         str(weights), "--splits_dir", str(tmp_path),
                         "--height", "64", "--width", "96",
                         "--num_depth_bins", "8", "--batch_size", "1",
                         "--num_workers", "2"])
     out = capsys.readouterr().out
-    assert SW.launches == 3
+    assert _launches("sweep_warp_corr") - before == 3
     assert 'kernel launches: {"sweep_warp_corr": 3}' in out
     assert re.findall(r"(\w+) results:", out) == ["mono", "mvs", "fused",
                                                   "upbound"]
@@ -789,7 +798,6 @@ def test_multistep_graph_matches_eager_steps(device):
     another order on every run); Adam is capturable; a second dispatch
     counts its launches per replay (the wrappers' counters do not run in
     a replay); the gradients left in .grad are the graph's."""
-    from movedepth_tpu_torch.ops import image_warp as IW
     from movedepth_tpu_torch.train import state as S
     cfg, cpu_models, batches, draws = _multistep_setup(device)
     runs = {}
@@ -819,14 +827,11 @@ def test_multistep_graph_matches_eager_steps(device):
         for a, b in zip(models[name].parameters(),
                         eager[name].parameters()):
             torch.testing.assert_close(a, b, rtol=5e-2, atol=1e-3)
-    counts = (SW.warp_launches, SW.warp_bwd_launches, IW.l1_launches,
-              IW.l1_bwd_launches)
+    counts = _launches(*SWEEP, *L1)
     graph = multi.graphs[True]
     multi(batches, draws, True)
     torch.cuda.synchronize()
-    assert (SW.warp_launches - counts[0], SW.warp_bwd_launches - counts[1],
-            IW.l1_launches - counts[2], IW.l1_bwd_launches - counts[3]) \
-        == (2, 2, 4, 4)
+    assert _grown(counts, *SWEEP, *L1) == (2, 2, 4, 4)
     assert all(p.grad is g for p, g in zip(graph.params, graph.grads))
 
 
@@ -934,10 +939,10 @@ def test_export_on_the_card_matches_live_forward(device, dtype, tmp_path):
     loaded = torch.export.load(tmp_path / "p.pt2").module()
     inputs = EM.example_inputs(cfg, False, 2, device)
     with torch.no_grad():
-        before = SW.launches
+        before = _launches("sweep_warp_corr")
         got = loaded(*inputs)
         torch.cuda.synchronize()
-        assert SW.launches == before + 1
+        assert _launches("sweep_warp_corr") == before + 1
         want = EM.ServingForward(models, cfg, False)(*inputs)
     for g, w in zip(got, want):
         assert g.shape == w.shape == (2, 64, 96)

@@ -22,6 +22,7 @@ from movedepth_tpu.ops.costvolume import (
 )
 from movedepth_tpu.ops.geometry import transformation_from_parameters
 from movedepth_tpu.ops.pallas import sweep_warp as JW
+from movedepth_tpu_torch import trace
 from movedepth_tpu_torch.ops import sweep_warp as SW
 
 
@@ -121,12 +122,12 @@ def test_bf16_inputs_round_once(rng):
     assert torch.all((got.float() - want).abs() <= ulp + 2e-5)
 
 
-def test_cpu_path_never_counts_a_launch(rng, monkeypatch):
-    monkeypatch.setattr(SW, "launches", 0)
+def test_cpu_path_never_counts_a_launch(rng):
+    before = trace.counter("launch.sweep_warp_corr")
     src, ref, _, _, _, _, sx, sy = _inputs(rng)
     _port(src, ref, sx, sy, 4)
     _port(src, ref, sx, sy, 4, torch.bfloat16)
-    assert SW.launches == 0
+    assert trace.counter("launch.sweep_warp_corr") == before
 
 
 @pytest.mark.parametrize("case", ["groups", "dtype", "coord_dtype", "shape",

@@ -92,9 +92,12 @@ def test_trainer_two_epochs_and_checkpoints(kitti_tree, trained):
     saved = torch.load(os.path.join(models_dir, "last", "adam.pth"),
                        weights_only=False)
     assert saved["step"] == 4
-    # --profile_steps 1: a torch.profiler trace of step 2
+    # --profile_steps 1: a torch.profiler trace of step 2, and the spans
     with open(os.path.join(root / "log", "t", "profile", "trace.json")) as f:
         assert json.load(f)["traceEvents"]
+    with open(os.path.join(root / "log", "t", "profile", "spans.json")) as f:
+        assert {"train.step", "train.forward", "train.backward",
+                "trainer.data_wait"} <= set(json.load(f)["spans"])
     # a checkpoint folder is a reference .pth folder
     fresh = build_models(trained.cfg, "cpu")
     assert sorted(W.load_reference_folder(
