@@ -140,9 +140,8 @@ def predict_disparities(models, cfg: Config, data_path: str,
     monos, mvss, fuseds = [], [], []
     with torch.no_grad():
         for batch in loader.epoch(0):
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in batch.items()
-                     if k in ("color", "K", "inv_K")}
+            batch = P.as_batch({k: v for k, v in batch.items()
+                                if k in ("color", "K", "inv_K")}, device)
             dm, dz, df = _disparities(models, batch, cfg, flip=False)
             if cfg.post_process:
                 # monodepth-v1 flip blending; the reference parses the flag

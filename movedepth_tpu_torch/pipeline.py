@@ -26,6 +26,8 @@ MVS trunk and the photometric frame blocks, and with ``remat_scope``
 from __future__ import annotations
 
 import contextlib
+import threading
+import warnings
 from typing import Dict
 
 import numpy as np
@@ -72,19 +74,113 @@ from movedepth_tpu_torch.ops.sweep_warp import (
 from movedepth_tpu_torch.ops.upsample import convex_upsample
 
 
+# The pinned staging ring of ``as_batch`` on a CUDA device: SLOTS host
+# buffers of CHUNK bytes, taken in turn. On H100 hosts the copy into a
+# slot (14-34 GB/s on 8 threads) is slower than the transfer out of it
+# (~54 GB/s), so three slots keep the host from waiting; chunks of 2-64
+# MiB staged a batch within a few ms of each other (PERF.md section 6).
+CHUNK = 16 << 20
+SLOTS = 3
+
+
+def chunk_plan(nbytes: int, chunk: int):
+    """The byte ranges ``(a, b)`` that cover ``[0, nbytes)`` in order, each
+    of at most ``chunk`` bytes; none for an empty array."""
+    return [(a, min(a + chunk, nbytes)) for a in range(0, nbytes, chunk)]
+
+
+class _Ring:
+    """SLOTS pinned host buffers of CHUNK bytes for one CUDA device, each
+    with the event of the last transfer out of it."""
+
+    def __init__(self):
+        self.slots = torch.empty((SLOTS, CHUNK), dtype=torch.uint8,
+                                 pin_memory=True)
+        self.done = [torch.cuda.Event() for _ in range(SLOTS)]
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def put(self, src: torch.Tensor, dst: torch.Tensor):
+        """Copy the host bytes ``src`` into the device bytes ``dst`` (both
+        flat uint8) chunk by chunk on the current stream: the host fills
+        the next slot (span ``as_batch.host_copy``) while the transfers out
+        of the slots before it run."""
+        with self.lock:
+            for a, b in chunk_plan(len(src), self.slots.shape[1]):
+                i = self.next
+                self.next = (i + 1) % len(self.done)
+                if not self.done[i].query():
+                    trace.count("h2d_staging_waits")
+                    self.done[i].synchronize()
+                slot = self.slots[i, :b - a]
+                with trace.span("as_batch.host_copy"):
+                    slot.copy_(src[a:b])
+                dst[a:b].copy_(slot, non_blocking=True)
+                self.done[i].record()
+
+
+_rings: Dict[int, _Ring] = {}  # CUDA device index -> its ring
+_rings_lock = threading.Lock()
+
+
+def _ring(index: int) -> _Ring:
+    with _rings_lock:
+        if index not in _rings:
+            _rings[index] = _Ring()
+        return _rings[index]
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        # torch warns that a read-only array could be written through the
+        # tensor; this one is only read
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a)
+
+
 @trace.traced("pipeline.as_batch")
 def as_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
                                                          torch.Tensor]:
     """A numpy batch (e.g. from ``make_batch``) as tensors on ``device``,
-    one array at a time: its host copy (span ``as_batch.host_copy``), then
-    its transfer. Counts the bytes put to the device (``h2d_bytes``) and
-    those of them from pageable memory (``h2d_pageable_bytes``)."""
+    one array at a time. Counts the bytes put to the device
+    (``h2d_bytes``), those of them from pageable memory
+    (``h2d_pageable_bytes``) and those through the staging ring
+    (``h2d_staged_bytes``).
+
+    On a CUDA device each array goes through the device's pinned staging
+    ring in chunks of at most CHUNK bytes, the host's copy of a chunk
+    overlapping the transfer of the one before; the transfers and what
+    follows them are queued on the current stream. ``h2d_staging_waits``
+    counts the chunks whose slot was still being sent. Elsewhere each
+    array is copied (span ``as_batch.host_copy``) and sent from pageable
+    memory. Either way the host reads the arrays no more once the call
+    returns."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        out = {}
+        for k, v in batch.items():
+            with trace.span("as_batch.host_copy"):
+                host = torch.from_numpy(np.array(v))
+            count_h2d((host,))
+            out[k] = host.to(device)
+        return out
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
     out = {}
-    for k, v in batch.items():
-        with trace.span("as_batch.host_copy"):
-            host = torch.from_numpy(np.array(v))
-        count_h2d((host,))
-        out[k] = host.to(device)
+    with torch.cuda.device(index):
+        ring = _ring(index)
+        for k, v in batch.items():
+            v = np.asarray(v)
+            src = _from_numpy(np.ascontiguousarray(v))
+            dst = torch.empty(v.shape, dtype=src.dtype, device=device)
+            ring.put(src.view(-1).view(torch.uint8),
+                     dst.view(-1).view(torch.uint8))
+            trace.count("h2d_bytes", dst.nbytes)
+            trace.count("h2d_pageable_bytes", 0)
+            trace.count("h2d_staged_bytes", dst.nbytes)
+            out[k] = dst
     return out
 
 

@@ -8,6 +8,7 @@ so this file imports none and takes no fixture from tests/conftest.py
 """
 
 import copy
+import warnings
 
 import numpy as np
 import pytest
@@ -546,6 +547,120 @@ def test_train_step_card_matches_cpu(device):
     spreads = _grad_rel(one_thread, models)
     for name, gap in _grad_rel(gpu_models, models).items():
         assert gap <= max(5e-3, 2.0 * spreads[name]), (name, gap, spreads)
+
+
+SMALL_CHUNK, SMALL_SLOTS = 4096, 3  # a ring a few KB of arrays wrap
+
+
+def _host(rng, shape, dtype=np.float32):
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max, shape, dtype=dtype,
+                            endpoint=True)
+    return rng.standard_normal(shape).astype(dtype)
+
+
+def _put_one(a, device):
+    """``a`` through ``as_batch``, and its bytes as the card holds them
+    against those ``torch.from_numpy`` gives."""
+    got = P.as_batch({"x": a}, device)["x"]
+    want = torch.from_numpy(np.array(a))
+    assert got.device.type == "cuda"
+    assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    return got, want
+
+
+def _same_bytes(got, want):
+    torch.cuda.synchronize()
+    return got.cpu().numpy().tobytes() == want.numpy().tobytes()
+
+
+def _read_only(rng):
+    a = _host(rng, (5, 1000))
+    a.setflags(write=False)
+    return a
+
+
+_STAGED_ARRAYS = {
+    "under_one_chunk": lambda rng: _host(rng, (1000,)),
+    "one_chunk": lambda rng: _host(rng, (SMALL_CHUNK // 4,)),
+    "not_a_multiple": lambda rng: _host(rng, (3, 1000)),
+    "wraps_the_ring": lambda rng: _host(rng, (64, 100)),
+    "slice": lambda rng: _host(rng, (40, 2, 100))[:, 1, ::3],
+    "negative_stride": lambda rng: _host(rng, (30, 100))[::-1, ::-2],
+    "read_only": _read_only,
+    "int64": lambda rng: _host(rng, (7, 333), np.int64),
+    "uint8": lambda rng: _host(rng, (3, 5555), np.uint8),
+    "empty": lambda rng: _host(rng, (0, 3)),
+    "scalar": lambda rng: np.float32(2.5),
+}
+
+
+def _back_to_back(device, rng):
+    """Two calls of several chunks each, no sync between them: the second
+    call's host copies wait for the first's transfers out of its slots."""
+    a, b = _host(rng, (64, 100)), _host(rng, (2, 48, 100))
+    got_a, got_b = P.as_batch({"a": a, "b": b}, device).values()
+    got_c = P.as_batch({"c": a[::-1] * 2}, device)["c"]
+    assert _same_bytes(got_a, torch.from_numpy(a))
+    assert _same_bytes(got_b, torch.from_numpy(b))
+    assert _same_bytes(got_c, torch.from_numpy(a[::-1] * 2))
+
+
+def _source_overwritten(device, rng):
+    """The caller may reuse its arrays once ``as_batch`` returns."""
+    a = _host(rng, (64, 100))
+    want = torch.from_numpy(a.copy())
+    got = P.as_batch({"a": a}, device)["a"]
+    a[...] = -1.0
+    assert _same_bytes(got, want)
+
+
+def _counters(device, rng):
+    """Every byte went through the ring, none from pageable memory."""
+    batch = {"color": _host(rng, (2, 2, 32, 48, 3)),
+             "K": _host(rng, (2, 4, 4)), "inv_K": _host(rng, (2, 4, 4))}
+    before = trace.counters()
+    P.as_batch(batch, device)
+    grown = {k: trace.counter(k) - before.get(k, 0)
+             for k in ("h2d_bytes", "h2d_staged_bytes",
+                       "h2d_pageable_bytes")}
+    nbytes = sum(v.nbytes for v in batch.values())
+    assert grown == {"h2d_bytes": nbytes, "h2d_staged_bytes": nbytes,
+                     "h2d_pageable_bytes": 0}
+
+
+def _real_ring(device, rng):
+    """The shipped CHUNK and SLOTS: an array of more chunks than slots,
+    not a whole number of chunks."""
+    n = (P.CHUNK * (P.SLOTS + 2) + 4 * 1234) // 4
+    got, want = _put_one(_host(rng, (n,)), device)
+    assert _same_bytes(got, want)
+
+
+_STAGED_CALLS = {"back_to_back": _back_to_back,
+                 "source_overwritten": _source_overwritten,
+                 "counters": _counters, "real_ring": _real_ring}
+
+
+@pytest.mark.parametrize("case", sorted(_STAGED_ARRAYS) + sorted(
+    _STAGED_CALLS))
+def test_as_batch_stages_through_the_ring(device, monkeypatch, case):
+    """``as_batch`` on the card: the bytes ``torch.from_numpy`` gives, for
+    each kind of source array and through a ring of 4 KiB chunks (the
+    shipped ring in ``real_ring``), without a warning."""
+    if case != "real_ring":
+        monkeypatch.setattr(P, "CHUNK", SMALL_CHUNK)
+        monkeypatch.setattr(P, "SLOTS", SMALL_SLOTS)
+        monkeypatch.setattr(P, "_rings", {})
+    rng = np.random.default_rng(sorted(_STAGED_ARRAYS).index(case)
+                                if case in _STAGED_ARRAYS else 99)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        if case in _STAGED_CALLS:
+            _STAGED_CALLS[case](device, rng)
+        else:
+            assert _same_bytes(*_put_one(_STAGED_ARRAYS[case](rng), device))
 
 
 def test_forward_infer_fused_card_matches_cpu(device):

@@ -8,7 +8,9 @@ card. This file imports no JAX, so on the card it runs as
 
 import copy
 import time
+import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -111,6 +113,42 @@ def test_inference_spans_parents_and_bytes(models):
     nbytes = sum(host[k].nbytes for k in ("color", "K", "inv_K"))
     assert summ["counters"]["h2d_bytes"] == nbytes
     assert summ["counters"]["h2d_pageable_bytes"] == nbytes
+
+
+@pytest.mark.parametrize("nbytes,chunk", [
+    (0, 16), (1, 16), (15, 16), (16, 16), (17, 16), (64, 16), (100, 7),
+    (3 * 377503744, P.CHUNK), (P.CHUNK * P.SLOTS + 1, P.CHUNK)])
+def test_chunk_plan_covers_each_byte_once(nbytes, chunk):
+    """The staging ring's chunks: in order, end to end from 0 to
+    ``nbytes``, none empty or over ``chunk``; none for an empty array."""
+    plan = P.chunk_plan(nbytes, chunk)
+    ends = [0] + [b for _, b in plan]
+    assert [a for a, _ in plan] == ends[:-1] and ends[-1] == nbytes
+    assert all(0 < b - a <= chunk for a, b in plan)
+    assert len(plan) == -(-nbytes // chunk)
+
+
+@pytest.mark.parametrize("case", ["read_only", "negative_stride", "slice",
+                                  "int64", "uint8", "scalar"])
+def test_as_batch_on_the_cpu_copies_any_array(case):
+    """The CPU path: a copy of each array, whatever its strides, type or
+    flags, without a warning; the caller's array is not shared."""
+    rng = np.random.default_rng(0)
+    a = {"read_only": rng.standard_normal((3, 5)).astype(np.float32),
+         "negative_stride": rng.standard_normal((4, 6))[::-1, ::-2],
+         "slice": rng.standard_normal((4, 2, 6))[:, 1, ::3],
+         "int64": rng.integers(-9, 9, (2, 7)),
+         "uint8": rng.integers(0, 255, (9,), dtype=np.uint8),
+         "scalar": np.float32(2.5)}[case]
+    if case == "read_only":
+        a.setflags(write=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = P.as_batch({"a": a}, "cpu")["a"]
+    want = np.array(a)
+    assert got.numpy().tobytes() == want.tobytes()
+    assert got.shape == want.shape
+    assert not np.shares_memory(got.numpy(), a)
 
 
 def test_train_spans_parents_and_self_time(models):
