@@ -50,10 +50,11 @@ without printing the final ok line:
    against its plain version at batch 12, timed against it and against the
    two-step path (the row-4 warp kernel, then the L1 in torch).
 8. train path: one train_step of the shipped Config(compute_dtype=
-   "float32") models at 640x192, batch 2, on the card against the same step
-   on the CPU (every loss; every model's gradient, against the spread the
-   CPU shows between 1 thread and all of them), the kernel launches of that
-   step, then one step of the shipped bfloat16 config.
+   "float32") models at 640x192, batch 2, on the card (a replay of a new
+   capture) against the same step on the CPU (every loss; every model's
+   gradient, against the spread the CPU shows between 1 thread and all of
+   them), the kernel launches of that call (its warm-up steps and the
+   replay), then one step of the shipped bfloat16 config.
 8b. phase 8 with kernel_l1 on, under the same gates; its launches (the L1
    kernel 2 forward + 2 backward, the plain warp kernel none); the same
    losses as phase 8's card step within 1e-5.
@@ -94,7 +95,7 @@ without printing the final ok line:
    launched in each rank; one more step and one gradient all-reduce
    timed in each rank.
    12c: in this process, a world-1 nccl group: the bfloat16 batch-12
-   train_step with the group (SyncBatchNorm, global masked means, gradient
+   eager step with the group (SyncBatchNorm, global masked means, gradient
    all-reduce) and without it, in turns, and the gradient all-reduce alone.
 13. the serving export, this slice's path: ``cli/export_model.
    build_export`` of the bfloat16 640x192 forward with phase 5's weights,
@@ -120,8 +121,8 @@ without printing the final ok line:
    BatchNorm statistic, ms/step and peak memory in turns. 15c:
    rematerialization at batch 32 ("full", "mvs", none; cuDNN's heuristic
    algorithms, as the trainer runs a rematerialized step): step 1's losses, gradients and BatchNorm
-   statistics against the plain step, launches, ms/step and peak memory
-   in turns, and the remat step with bfloat16 parameters as a CUDA graph
+   statistics of eager steps against the plain step, launches, ms/step
+   and peak memory in turns, and the remat step with bfloat16 parameters as a CUDA graph
    against two eager steps from each replay's state (losses, parameters,
    buffers and Adam moments). 15d: robust_train's
    offsets through ``Loader.epoch``, native against PIL; the train CLI
@@ -1452,8 +1453,16 @@ def _corr_launches():
     return trace.counter("launch.sweep_warp_corr")
 
 
+def _per_step(launches):
+    """The launches of the card's first train_step from launches a step:
+    WARMUP_STEPS eager steps before the capture, then one replay."""
+    from movedepth_tpu_torch.train import state as S
+    return [n * (S.WARMUP_STEPS + 1) for n in launches]
+
+
 def _f32_step(cfg, step_models, step_batch, step_draws):
-    """One float32 train_step from fresh optimizer state; (losses, s)."""
+    """One float32 train_step from fresh optimizer state; (losses, s). On
+    the card it is a replay of a new capture."""
     from movedepth_tpu_torch.train import state as S
     opt, sched = S.create_optimizer(step_models, cfg)
     t0 = time.perf_counter()
@@ -1494,8 +1503,9 @@ def phase_train_path():
     """The train path: train_step of the shipped Config(compute_dtype=
     "float32") models (ResNet18, 640x192, 16 bins, convex upsampling) at
     batch 2 on the card against the same step on the CPU, then one step in
-    the shipped bfloat16 config. Returns (the launches of the card's float32
-    step, the CPU models after their step, what phase 8b reuses)."""
+    the shipped bfloat16 config. Returns (the launches of one step of the
+    card's float32 train_step, the CPU models after their step, what phase
+    8b reuses)."""
     import torch
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
@@ -1530,10 +1540,13 @@ def phase_train_path():
     got, _ = _f32_step(cfg32, models, gpu_batch, gpu_draws)
     torch.cuda.synchronize()
     launches = _launch_counts()
-    log(f"[train] kernel launches of one card train_step: {launches}")
-    if list(launches.values()) != [1, 1, 2, 2, 0, 0]:
+    log(f"[train] kernel launches of the card's first train_step (its "
+        f"{S.WARMUP_STEPS} warm-up steps and one replay): {launches}")
+    if list(launches.values()) != _per_step([1, 1, 2, 2, 0, 0]):
         raise RuntimeError("expected sweep_warp 1 forward + 1 backward and "
-                           "warp_images_border 2 forward + 2 backward")
+                           "warp_images_border 2 forward + 2 backward a "
+                           "step")
+    launches = {k: n // (S.WARMUP_STEPS + 1) for k, n in launches.items()}
     spreads = _grad_rel(one_thread, cpu_models)
     _card_vs_cpu("train", got, want, models, cpu_models, spreads, threads)
 
@@ -1576,12 +1589,12 @@ def phase_train_path_l1(init, batch, draws, spreads, threads, got_off):
     got, _ = _f32_step(cfg, models, P.as_batch(batch, "cuda"), gpu_draws)
     torch.cuda.synchronize()
     launches = _launch_counts()
-    log(f"[train-l1] kernel launches of one card train_step with kernel_l1: "
-        f"{launches}")
-    if list(launches.values()) != [1, 1, 0, 0, 2, 2]:
+    log(f"[train-l1] kernel launches of the card's first train_step with "
+        f"kernel_l1 (warm-up steps and one replay): {launches}")
+    if list(launches.values()) != _per_step([1, 1, 0, 0, 2, 2]):
         raise RuntimeError("expected sweep_warp 1 + 1, warp_images_border "
                            "0 + 0 and warp_images_border_l1 2 forward + 2 "
-                           "backward")
+                           "backward a step")
     _card_vs_cpu("train-l1", got, want, models, cpu_models, spreads, threads)
     worst = max(abs(got[k].item() - got_off[k].item()) / abs(got_off[k].item())
                 for k in got_off)
@@ -1808,6 +1821,7 @@ def phase_train_cli(l1_ms, card):
     a resume from ``last`` for a third epoch. Returns (the first run's
     kernel launches, its {epoch: wall ms/step after the first step})."""
     from movedepth_tpu_torch.config import ALL_MODELS
+    from movedepth_tpu_torch.train import state as S
 
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "kitti")
@@ -1830,14 +1844,22 @@ def phase_train_cli(l1_ms, card):
             raise RuntimeError("no opt.json")
         step = _check_folders(models_dir, ("weights_0", "weights_1", "last"),
                               ALL_MODELS)
-        want = {"sweep_warp": 8, "sweep_warp_bwd": 4,
+        warm = S.WARMUP_STEPS  # the eager steps before the one capture
+        want = {"sweep_warp": 8 + warm, "sweep_warp_bwd": 4 + warm,
                 "warp_images_border": 0, "warp_images_border_coord_bwd": 0,
-                "warp_images_border_l1": 16,
-                "warp_images_border_l1_coord_bwd": 8}
+                "warp_images_border_l1": 16 + 2 * warm,
+                "warp_images_border_l1_coord_bwd": 8 + 2 * warm}
+        steps = [json.loads(ln.split(": ", 1)[1]) for ln in lines
+                 if ln.startswith("train steps: ")]
         log(f"[cli] 2 epochs: step {step}; kernel launches {launches} "
-            "(4 train steps and 4 validations)")
+            f"(4 train steps, 4 validations and the capture's {warm} "
+            f"warm-up steps); train steps {steps}")
         if step != 4 or launches != want:
             raise RuntimeError(f"expected step 4 and launches {want}")
+        if steps != [{"train.step_graph_captures": 1,
+                      "train.step_graph_replays": 4,
+                      "train.step_eager": 0}]:
+            raise RuntimeError("expected one capture and 4 replays")
 
         last = os.path.join(models_dir, "last")
         _, epochs2, launches2 = _train_cli(
@@ -2304,10 +2326,10 @@ def phase_ddp_ranks(card):
 def phase_ddp_overhead(cpu_models, card):
     """Phase 12c: the data-parallel step at world 1 in this process (an
     nccl group through a file:// rendezvous): the bfloat16 batch-12
-    train_step with the group (SyncBatchNorm, global masked means, the
-    gradient all-reduce) and without it, in turns (without, with, with,
-    without), 10 steps after 3 warmups each, and the gradient all-reduce
-    alone."""
+    eager step (``_eager_train_step``, which train_step runs under a group)
+    with the group (SyncBatchNorm, global masked means, the gradient
+    all-reduce) and without it, in turns (without, with, with, without),
+    10 steps after 3 warmups each, and the gradient all-reduce alone."""
     import torch
     from movedepth_tpu_torch import Config
     from movedepth_tpu_torch import pipeline as P
@@ -2340,8 +2362,9 @@ def phase_ddp_overhead(cpu_models, card):
                 g = group if label == "with" else None
                 _zero_launch_counts()
                 times[label].append(cuda_ms(
-                    lambda: S.train_step(models, opt, sched, batch, cfg,
-                                         True, draws, g), runs=10, warmup=3))
+                    lambda: S._eager_train_step(models, opt, sched, batch,
+                                                cfg, True, draws, g),
+                    runs=10, warmup=3))
                 launches = _launch_counts()
                 if not launches["sweep_warp"]:
                     raise RuntimeError(f"12c: no kernel launched {launches}")
@@ -2468,7 +2491,8 @@ def _multistep_inputs(cfg, k):
 
 
 def _multistep_equality(train_models, cfg, batches, draws):
-    """Phase 14's equality. (1) From one state, K eager train_steps (twice:
+    """Phase 14's equality. (1) From one state, K eager steps
+    (``_eager_train_step``, twice:
     their spread is the yardstick) against one graphed dispatch of K:
     step 1's losses within 1e-5 relative, its gradients (the first
     dispatch of (2)) per model under phase 8's rule (relative L2 at most
@@ -2495,8 +2519,9 @@ def _multistep_equality(train_models, cfg, batches, draws):
         models, opt, sched = fresh()
         losses = []
         for i in range(k):
-            losses.append(S.train_step(models, opt, sched, batches[i], cfg,
-                                       True, draws[i])[0])
+            losses.append(S._eager_train_step(models, opt, sched,
+                                              batches[i], cfg, True,
+                                              draws[i])[0])
             if i == 0:
                 grads = {n: [p.grad.clone() for p in m.parameters()]
                          for n, m in models.items()}
@@ -2546,8 +2571,8 @@ def _multistep_equality(train_models, cfg, batches, draws):
                             ref_opt.state[a][key].copy_(v)
                 for a, b in zip(ref[n].buffers(), m.buffers()):
                     a.copy_(b)
-        want = S.train_step(ref, ref_opt, ref_sched, batches[i], cfg, True,
-                            draws[i])[0]
+        want = S._eager_train_step(ref, ref_opt, ref_sched, batches[i], cfg,
+                                   True, draws[i])[0]
         step = multi(batches[i:i + 1], draws[i:i + 1], True)
         synced.append(max(rel(step[key][0], want[key]) for key in want))
         zeros = [key for key in want if float(want[key]) == 0.0]
@@ -2577,7 +2602,8 @@ def _multistep_equality(train_models, cfg, batches, draws):
 
 
 def _multistep_turns(train_models, cfg, batches, draws, card, group=None):
-    """ms/step of K eager train_steps against one graphed dispatch of K,
+    """ms/step of K eager steps (``_eager_train_step``) against one graphed
+    dispatch of K,
     in turns (eager, graphed, graphed, eager; CUDA events around the K
     steps, median of 3 after 1 warmup), the capture before them; the peak
     memory allocated in the eager turns, and the memory the graph holds
@@ -2602,8 +2628,8 @@ def _multistep_turns(train_models, cfg, batches, draws, card, group=None):
 
     def eager():
         for b, d in zip(batches, draws):
-            S.train_step(eager_models, eager_opt, eager_sched, b, cfg, True,
-                         d, group)
+            S._eager_train_step(eager_models, eager_opt, eager_sched, b, cfg,
+                                True, d, group)
 
     # what the graph holds: its private pool (one step's activations) and
     # its static tensors, reserved for as long as the graph lives
@@ -2753,11 +2779,12 @@ def phase_variant_paths(card):
                             "noise": [n.cuda() for n in draws["noise"]]})
         torch.cuda.synchronize()
         launches = _launch_counts()
-        log(f"[15a {tag}] kernel launches of one card train_step: "
-            f"{launches}")
-        if list(launches.values()) != [1, 1, 2, 2, 0, 0]:
+        log(f"[15a {tag}] kernel launches of the card's first train_step "
+            f"(warm-up steps and one replay): {launches}")
+        if list(launches.values()) != _per_step([1, 1, 2, 2, 0, 0]):
             raise RuntimeError(f"15a {tag}: expected sweep_warp 1 + 1 and "
-                               "warp_images_border 2 + 2")
+                               "warp_images_border 2 + 2 a step")
+        launches = {k: n // _per_step([1])[0] for k, n in launches.items()}
         _card_vs_cpu(f"15a {tag}", got, want, models, cpu_models,
                      _grad_rel(one_thread, cpu_models), threads)
         out[tag] = dict(launches, sweep_warp_corr=infer)
@@ -3077,8 +3104,8 @@ def phase_remat(card):
         step_cfg = cfgs[key]
         models, opt, sched = _fresh(base, step_cfg)
         _zero_launch_counts()
-        losses = S.train_step(models, opt, sched, batch, step_cfg, True,
-                              draws)[0]
+        losses = S._eager_train_step(models, opt, sched, batch, step_cfg,
+                                     True, draws)[0]
         torch.cuda.synchronize()
         runs[label] = (losses, {n: [p.grad.clone() for p in m.parameters()]
                                 for n, m in models.items()},
@@ -3158,8 +3185,9 @@ def phase_remat(card):
         eager = []
         for _ in range(2):
             _load_train_state(ref_models, ref_opt, start)
-            losses = S.train_step(ref_models, ref_opt, ref_sched, batches[i],
-                                  gcfg, True, step_draws[i])[0]
+            losses = S._eager_train_step(ref_models, ref_opt, ref_sched,
+                                         batches[i], gcfg, True,
+                                         step_draws[i])[0]
             eager.append((losses, _train_state(ref_models, ref_opt)))
         got = multi(batches[i:i + 1], step_draws[i:i + 1], True)
         exact = all(torch.equal(got[k][0], eager[0][0][k])
@@ -3189,7 +3217,7 @@ def phase_remat(card):
             elif not d <= max(5e-3, 2 * e):
                 failed.append(f"replay {i + 1} {n} {kind} rel L2 {d:.3e} "
                               f"(eager {e:.3e})")
-    log(f"[15c] launches per replay {multi.graphs[True].counts}")
+    log(f"[15c] launches per replay {S._captured[graphed[1]].counts}")
     if failed:
         raise RuntimeError("15c: a graphed remat replay is off its eager "
                            "step: " + "; ".join(failed))

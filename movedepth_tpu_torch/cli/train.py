@@ -26,7 +26,9 @@ same steps: beside the trace, ``spans.json`` holds per span (``train.step``,
 max, self host ms and device ms mean, and how much each counter grew
 (kernel launches, ``h2d_bytes``); the ten spans with the most self time
 are printed. In the trace each span is a ``movedepth.<name>`` range. At
-the end each process prints one line with its kernel launches.
+the end each process prints one line with its kernel launches and one
+with how many train steps were captured, replayed and issued eagerly
+(``train.state.step_counts``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 from movedepth_tpu_torch.cli.options import add_config_args, config_from_args
 from movedepth_tpu_torch.ops import kernel_launches
 from movedepth_tpu_torch.parallel import dist as D
+from movedepth_tpu_torch.train.state import step_counts
 from movedepth_tpu_torch.train.trainer import Trainer
 
 
@@ -84,6 +87,7 @@ def main(argv=None):
                       world_size=world, group=group)
     trainer.train()
     print("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    print("train steps: " + json.dumps(step_counts()), flush=True)
     if group is not None:
         torch.distributed.destroy_process_group()
     return trainer

@@ -110,8 +110,10 @@ class Config:
     # train batches (per card) above this rematerialize the MVS trunk and
     # the photometric frame blocks (torch.utils.checkpoint)
     remat_batch_threshold: int = 24
-    # > 1: train steps per dispatch, a CUDA graph of one step replayed on
-    # the card (train/state.py make_train_multistep)
+    # train steps per dispatch. On the card without a process group each
+    # step, K = 1 included, is a replay of one captured CUDA graph of the
+    # step (train/state.py train_step); K > 1 replays it K times a call
+    # (make_train_multistep), under an nccl group too
     steps_per_dispatch: int = 1
     scoped_vmem_limit_kib: int = 32768  # JAX package only
     infer_scoped_vmem_limit_kib: int = 40960  # JAX package only

@@ -7,17 +7,26 @@ The rate drops x0.1 every ``scheduler_step_size`` epochs before
 ``num_epochs``, counted in optimizer steps, as the JAX package's optax
 piecewise-constant schedule does. Each group's rate is a 0-d tensor on the
 parameters' device that :class:`StepSchedule` overwrites in place, and on
-the card Adam is ``capturable``: one train step can then be captured as a
-CUDA graph, which is how :func:`make_train_multistep` ports the JAX
-package's multi-step scan (``steps_per_dispatch``); a rematerialized step
-(``remat_batch_threshold``, pipeline.py) captures too. The XLA-only levers
-of the JAX package (compiler options, scoped-VMEM limits) have no
-counterpart.
+the card Adam is ``capturable``: one train step (forward, losses,
+backward, Adam) is captured as a CUDA graph and replayed. On the card and
+without a process group, :func:`train_step` replays that graph, one step
+a call, as the JAX package dispatches one compiled step; on the CPU and
+under any process group it runs the step eagerly.
+:func:`make_train_multistep` (``steps_per_dispatch`` K > 1, the JAX
+package's multi-step scan) replays the same capture K times a call; a
+rematerialized step (``remat_batch_threshold``, pipeline.py) captures
+too. The XLA-only levers of the JAX package (compiler options,
+scoped-VMEM limits) have no counterpart.
+
+How often each path ran is counted in the tracer's counters
+(:func:`step_counts`): ``train.step_graph_captures``,
+``train.step_graph_replays`` and ``train.step_eager``.
 """
 
 from __future__ import annotations
 
 import bisect
+import weakref
 from typing import Dict
 
 import torch
@@ -33,6 +42,9 @@ MVS_GROUP = ("mask_cnn", "mvs_encoder", "reg3d")
 # eager steps before a capture (PyTorch's whole-network capture recipe):
 # cuDNN's autotuning, Adam's state and NCCL's communicators exist by then
 WARMUP_STEPS = 3
+# the tracer's counters of the step's paths (see step_counts)
+STEP_COUNTERS = ("train.step_graph_captures", "train.step_graph_replays",
+                 "train.step_eager")
 
 
 def lr_milestones(cfg: Config, steps_per_epoch: int):
@@ -128,6 +140,21 @@ def _step_body(models, optimizer, batch, cfg, use_z_bins, draws, group,
     return losses, outputs
 
 
+def step_graphed(device: torch.device, group) -> bool:
+    """Whether :func:`train_step` replays a captured CUDA graph of the step:
+    the parameters on the card (``device``) and no process group. Every
+    group stays eager: gloo collectives cannot be captured, and a capture
+    at world > 1 has never run."""
+    return device.type == "cuda" and group is None
+
+
+def step_counts() -> dict:
+    """How many steps took each path in this process (since the tracer's
+    last reset): the tracer's counters ``train.step_graph_captures``,
+    ``train.step_graph_replays`` and ``train.step_eager``."""
+    return {k: trace.counter(k) for k in STEP_COUNTERS}
+
+
 @trace.traced("train.step")
 def train_step(models, optimizer, schedule, batch, cfg: Config,
                use_z_bins: bool, draws, group=None):
@@ -138,7 +165,39 @@ def train_step(models, optimizer, schedule, batch, cfg: Config,
     rank's rows) the masked means cover the global batch and the gradients
     are averaged over the ranks before Adam, so every rank takes the step
     of one process at the global batch. Returns (the losses dict, the
-    outputs dict), detached. The whole call is the span ``train.step``."""
+    outputs dict), detached; a later call overwrites neither. The whole
+    call is the span ``train.step``.
+
+    On the card without a group (:func:`step_graphed`) the step is a
+    replay of the optimizer's captured step (:func:`_step_graph`): the
+    batch and the draws are copied into the graph's inputs, the graph
+    replays, and the losses and outputs are copied out of it; ``.grad``
+    holds the graph's gradients. The first call, and a call whose
+    ``use_z_bins``, config or input shapes and dtypes the held capture
+    does not take, captures (the models take no step for it). On the CPU
+    and under any process group the step runs eagerly
+    (:func:`_eager_train_step`)."""
+    device = next(p.device for m in models.values() for p in m.parameters())
+    if not step_graphed(device, group):
+        return _eager_train_step(models, optimizer, schedule, batch, cfg,
+                                 use_z_bins, draws, group)
+    for m in models.values():
+        if not m.training:  # the graph runs in train mode whatever the flag
+            m.train()
+    graph = _step_graph(models, optimizer, cfg, bool(use_z_bins), group,
+                        batch, draws)
+    losses = graph.replay(batch, draws)
+    schedule.step()
+    graph.restore_grads()
+    return dict(zip(graph.keys, losses.unbind())), _cloned(graph.outputs)
+
+
+def _eager_train_step(models, optimizer, schedule, batch, cfg: Config,
+                      use_z_bins: bool, draws, group=None):
+    """:func:`train_step` issued op by op: the CPU's and every process
+    group's path, and the card's eager baseline. Counts
+    ``train.step_eager``."""
+    trace.count("train.step_eager")
     for m in models.values():
         m.train()
     optimizer.zero_grad(set_to_none=True)
@@ -146,6 +205,12 @@ def train_step(models, optimizer, schedule, batch, cfg: Config,
                                  draws, group)
     schedule.step()
     return _detached(losses), _detached(outputs)
+
+
+def _cloned(tree):
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def _copy_in(dst, src):
@@ -165,17 +230,31 @@ def _static_draws(draws, device):
             "noise": [n.clone() for n in draws["noise"]]}
 
 
+def _signature(use_z_bins, batch, draws):
+    """What a capture is keyed on besides the config and the group:
+    ``use_z_bins`` and the shapes and dtypes of the batch and the draws."""
+    def sig(v):
+        return ((tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
+                else type(v))
+    return (use_z_bins, tuple((k, sig(v)) for k, v in batch.items()),
+            tuple(sig(v) for v in draws["box"]),
+            tuple(sig(v) for v in draws["noise"]))
+
+
 class _StepGraph:
     """One train step captured as a CUDA graph: its static inputs (a batch
-    and its draws), the stacked losses it writes, the gradients it owns,
-    and what the tracer's counters count in one replay (``counts``, read
-    at capture, taken back off the counters then and added per replay:
-    the kernel wrappers and the all-reduce count in Python, which a
-    replay does not run)."""
+    and its draws), the stacked losses and the outputs it writes, the
+    gradients it owns, and what the tracer's counters count in one replay
+    (``counts``, read at capture, taken back off the counters then and
+    added per replay: the kernel wrappers and the all-reduce count in
+    Python, which a replay does not run). ``serves`` says whether it takes
+    a step of the given key, config, group and optimizer state."""
 
     def __init__(self, models, optimizer, cfg, use_z_bins, group, batch,
                  draws, stream):
         device = batch["color"].device
+        self.key = _signature(use_z_bins, batch, draws)
+        self.cfg, self.group, self.state = cfg, group, optimizer.state
         self.batch = {k: v.clone() for k, v in batch.items()}
         self.draws = _static_draws(draws, device)
         self.params = [p for name in sorted(models)
@@ -185,12 +264,13 @@ class _StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph, stream=stream):
-                losses, _ = _step_body(models, optimizer, self.batch, cfg,
-                                       use_z_bins, self.draws, group,
-                                       check_grads=False)
+                losses, outputs = _step_body(
+                    models, optimizer, self.batch, cfg, use_z_bins,
+                    self.draws, group, check_grads=False)
                 self.keys = list(losses)
                 self.losses = torch.stack([losses[k].detach().float()
                                            for k in self.keys])
+                self.outputs = _detached(outputs)
         finally:
             self.counts = {k: n - before.get(k, 0)
                            for k, n in trace.counters().items()
@@ -198,6 +278,14 @@ class _StepGraph:
             for k, n in self.counts.items():
                 trace.count(k, -n)
         self.grads = [p.grad for p in self.params]
+
+    def serves(self, key, cfg, group, optimizer) -> bool:
+        """The same inputs' shapes and dtypes, config and group, and the
+        optimizer state the graph updates (a ``load_state_dict`` puts in
+        new tensors)."""
+        return (key == self.key and group is self.group
+                and optimizer.state is self.state
+                and (cfg is self.cfg or cfg == self.cfg))
 
     def replay(self, batch, draws):
         """One step on ``batch`` and ``draws``: copy them in, replay.
@@ -211,6 +299,7 @@ class _StepGraph:
         for dst, src in zip(self.draws["noise"], draws["noise"]):
             _copy_in(dst, src)
         self.graph.replay()
+        trace.count("train.step_graph_replays")
         for k, n in self.counts.items():
             trace.count(k, n)
         return self.losses.clone()
@@ -222,38 +311,89 @@ class _StepGraph:
             p.grad = g
 
 
+# the captured step of each optimizer on the card, dropped with it
+_captured: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _step_graph(models, optimizer, cfg, use_z_bins, group, batch, draws):
+    """The optimizer's captured step, the one :func:`train_step` and the
+    multi-step dispatch replay. One capture is held per optimizer. A call
+    it does not serve (another ``use_z_bins``, config, group, batch or
+    draw shape or dtype, or optimizer state) drops it, so that its memory
+    pool is freed, and captures anew: WARMUP_STEPS eager steps on this
+    batch on a side stream, the models' parameters and buffers and Adam's
+    state put back as they were (:func:`_warm_up`), then the capture,
+    which runs nothing. A step that cannot be captured raises; there is no
+    fallback to eager steps. Counts ``train.step_graph_captures``."""
+    key = _signature(use_z_bins, batch, draws)
+    graph = _captured.get(optimizer)
+    if graph is not None and graph.serves(key, cfg, group, optimizer):
+        return graph
+    if graph is not None:
+        del _captured[optimizer], graph
+        optimizer.zero_grad(set_to_none=True)  # its gradients go with it
+    stream = torch.cuda.Stream(batch["color"].device)
+    _warm_up(models, optimizer, cfg, use_z_bins, group, batch, draws, stream)
+    graph = _captured[optimizer] = _StepGraph(
+        models, optimizer, cfg, use_z_bins, group, batch, draws, stream)
+    trace.count("train.step_graph_captures")
+    return graph
+
+
+def _warm_up(models, optimizer, cfg, use_z_bins, group, batch, draws,
+             stream):
+    """WARMUP_STEPS eager steps on ``stream``, then the models' parameters
+    and buffers and Adam's state as they were (Adam's state that the
+    warm-up created is zeroed: a fresh Adam's)."""
+    params = [p for m in models.values() for p in m.parameters()]
+    buffers = [b for m in models.values() for b in m.buffers()]
+    state = {p: {k: v.clone() for k, v in optimizer.state[p].items()}
+             for p in params if p in optimizer.state}
+    saved = [t.detach().clone() for t in params + buffers]
+    device = batch["color"].device
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        for _ in range(WARMUP_STEPS):
+            optimizer.zero_grad(set_to_none=True)
+            _step_body(models, optimizer, batch, cfg, use_z_bins, draws,
+                       group)
+        with torch.no_grad():
+            for t, s in zip(params + buffers, saved):
+                t.copy_(s)
+            for p in params:
+                for k, v in optimizer.state.get(p, {}).items():
+                    if p in state:
+                        v.copy_(state[p][k])
+                    else:
+                        v.zero_()
+    torch.cuda.current_stream(device).wait_stream(stream)
+
+
 class _TrainMultistep:
     """K train steps per call: ``(batches, draws, use_z_bins) -> losses``,
     each loss stacked (K,) on the device, the steps exactly K sequential
     :func:`train_step` calls on the same batches and draws (the image
-    outputs are not materialized).
+    outputs are not copied out).
 
-    On the card one step is captured as a CUDA graph, once per value of
-    ``use_z_bins`` (the graph of the other value is dropped), and each call
-    copies every batch and its draws into the graph's static inputs and
-    replays it, with the schedule's rate written in between: no host read
-    of the device inside a call. Before the capture, WARMUP_STEPS eager
-    steps on the first batch run on the capture's side stream and the
-    models, their statistics and Adam's state are put back as they were, so
-    they take no step. A step that cannot be captured raises; the card
-    never falls back to eager steps. On the CPU a call is K eager
-    :func:`train_step` calls."""
+    On the card each call replays the optimizer's captured step
+    (:func:`_step_graph`, the capture :func:`train_step` replays too) once
+    per batch, each batch and its draws copied into the graph's static
+    inputs and the schedule's rate written in between: no host read of the
+    device inside a call. On the CPU a call is K eager :func:`train_step`
+    calls."""
 
     def __init__(self, models, optimizer, schedule, cfg: Config, group=None):
         self.models, self.optimizer = models, optimizer
         self.schedule, self.cfg, self.group = schedule, cfg, group
         self.device = next(p.device for m in models.values()
                            for p in m.parameters())
-        self.graphs: Dict[bool, _StepGraph] = {}
-        self.stream = None
-        if self.device.type == "cuda":
-            if group is not None and dist.get_backend(group) != "nccl":
-                raise ValueError(
-                    "steps_per_dispatch > 1 on the card captures the step as "
-                    "a CUDA graph, which needs an nccl group: gloo "
-                    f"collectives cannot be captured (got "
-                    f"{dist.get_backend(group)})")
-            self.stream = torch.cuda.Stream(self.device)
+        if (self.device.type == "cuda" and group is not None
+                and dist.get_backend(group) != "nccl"):
+            raise ValueError(
+                "steps_per_dispatch > 1 on the card captures the step as "
+                "a CUDA graph, which needs an nccl group: gloo "
+                f"collectives cannot be captured (got "
+                f"{dist.get_backend(group)})")
 
     def __call__(self, batches, draws, use_z_bins: bool):
         if len(batches) != len(draws):
@@ -263,16 +403,11 @@ class _TrainMultistep:
                                 b, self.cfg, use_z_bins, d, self.group)[0]
                      for b, d in zip(batches, draws)]
             return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
-        use_z_bins = bool(use_z_bins)
         for m in self.models.values():
             m.train()
-        graph = self.graphs.get(use_z_bins)
-        if graph is None:
-            self.graphs.clear()
-            self._warm_up(batches[0], draws[0], use_z_bins)
-            graph = self.graphs[use_z_bins] = _StepGraph(
-                self.models, self.optimizer, self.cfg, use_z_bins,
-                self.group, batches[0], draws[0], self.stream)
+        graph = _step_graph(self.models, self.optimizer, self.cfg,
+                            bool(use_z_bins), self.group, batches[0],
+                            draws[0])
         rows = []
         for batch, draw in zip(batches, draws):
             rows.append(graph.replay(batch, draw))
@@ -280,32 +415,6 @@ class _TrainMultistep:
         graph.restore_grads()
         stacked = torch.stack(rows, dim=1)
         return dict(zip(graph.keys, stacked.unbind()))
-
-    def _warm_up(self, batch, draws, use_z_bins):
-        """WARMUP_STEPS eager steps on the capture stream, then the models'
-        parameters and buffers and Adam's state as they were (Adam's state
-        that the warm-up created is zeroed: a fresh Adam's)."""
-        params = [p for m in self.models.values() for p in m.parameters()]
-        buffers = [b for m in self.models.values() for b in m.buffers()]
-        state = {p: {k: v.clone() for k, v in self.optimizer.state[p].items()}
-                 for p in params if p in self.optimizer.state}
-        saved = [t.detach().clone() for t in params + buffers]
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.stream):
-            for _ in range(WARMUP_STEPS):
-                self.optimizer.zero_grad(set_to_none=True)
-                _step_body(self.models, self.optimizer, batch, self.cfg,
-                           use_z_bins, draws, self.group)
-            with torch.no_grad():
-                for t, s in zip(params + buffers, saved):
-                    t.copy_(s)
-                for p in params:
-                    for k, v in self.optimizer.state.get(p, {}).items():
-                        if p in state:
-                            v.copy_(state[p][k])
-                        else:
-                            v.zero_()
-        torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
 
 def make_train_multistep(models, optimizer, schedule, cfg: Config,

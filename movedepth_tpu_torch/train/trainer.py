@@ -27,11 +27,15 @@ clock: the epoch, the z-guided bins and the learning-rate schedule go on
 where the saved run left off. A reference folder without it starts at step
 0.
 
-With ``steps_per_dispatch`` K > 1 an epoch runs in groups of K batches
-through ``train.state.make_train_multistep`` (on the card, replays of a
-CUDA graph of one step; a gloo group on the card raises), with the step
-and batch accounting of the single-step loop; the tail of fewer than K
-batches runs as single steps.
+Each step is ``train.state.train_step``: on the card without a process
+group, a replay of one captured CUDA graph of the step (captured at the
+first step and again once when ``ztrans_start_epc`` turns the z-guided
+bins on); on the CPU and under a process group, eager. With
+``steps_per_dispatch`` K > 1 an epoch runs in groups of K batches through
+``train.state.make_train_multistep`` (on the card, K replays of the same
+capture a call, under an nccl group too; a gloo group on the card
+raises), with the step and batch accounting of the single-step loop; the
+tail of fewer than K batches runs as single steps.
 """
 
 from __future__ import annotations

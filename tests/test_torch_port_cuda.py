@@ -9,6 +9,7 @@ so this file imports none and takes no fixture from tests/conftest.py
 
 import copy
 import warnings
+import weakref
 
 import numpy as np
 import pytest
@@ -456,9 +457,10 @@ def test_kernel_variants_full_is_the_shipped_kernel(device):
 
 def test_train_step_kernel_l1_card_matches_cpu(device):
     """kernel_l1 on the card: the L1 epilogue kernel runs (2 forward and 2
-    backward launches, the plain border warp none) and the losses equal
-    the CPU step's within 1e-3 and the card's kernel_l1=False step's
-    within 1e-5."""
+    backward launches a step, the plain border warp none; the card's first
+    train_step takes WARMUP_STEPS eager steps before its capture and
+    replay) and the losses equal the CPU step's within 1e-3 and the card's
+    kernel_l1=False step's within 1e-5."""
     from movedepth_tpu_torch.train import state as S
     cfg = Config(height=64, width=96, compute_dtype="float32",
                  kernel_l1=True)
@@ -482,7 +484,8 @@ def test_train_step_kernel_l1_card_matches_cpu(device):
     counts = _launches(*BORDER, *L1)
     got = step(cfg, {k: copy.deepcopy(m).to(device)
                      for k, m in models.items()}, gpu_batch, gpu_draws)
-    assert _grown(counts, *BORDER, *L1) == (0, 0, 2, 2)
+    steps = S.WARMUP_STEPS + 1
+    assert _grown(counts, *BORDER, *L1) == (0, 0, 2 * steps, 2 * steps)
     off = step(cfg.replace(kernel_l1=False),
                {k: copy.deepcopy(m).to(device) for k, m in models.items()},
                gpu_batch, gpu_draws)
@@ -508,7 +511,9 @@ def _grad_rel(models, ref_models):
 def test_train_step_card_matches_cpu(device):
     """One train step of the port on the card (through the kernels) against
     the same step on the CPU (through the plain versions), float32, 64x96:
-    the kernel launches of one step, every loss within 1e-3, and every
+    the kernel launches of one step (times WARMUP_STEPS + 1: the card's
+    first train_step warms up before its capture and replay), every loss
+    within 1e-3, and every
     model's gradient within 5e-3 or twice the spread the CPU shows between
     1 thread and all of them, whichever is larger (a float32 gradient of
     this step is fixed only up to the order of its sums)."""
@@ -540,7 +545,9 @@ def test_train_step_card_matches_cpu(device):
     got = step(gpu_models, {k: v.to(device) for k, v in batch.items()},
                {"box": draws["box"],
                 "noise": [n.to(device) for n in draws["noise"]]})
-    assert _grown(counts, *SWEEP, *BORDER) == (1, 1, 2, 2)
+    steps = S.WARMUP_STEPS + 1
+    assert _grown(counts, *SWEEP, *BORDER) == tuple(
+        n * steps for n in (1, 1, 2, 2))
     for k in want:
         np.testing.assert_allclose(got[k].item(), want[k].item(), rtol=1e-3,
                                    err_msg=k)
@@ -925,7 +932,8 @@ def test_multistep_graph_matches_eager_steps(device):
             multi = S.make_train_multistep(models, opt, sched, cfg)
             losses = multi(batches, draws, True)
         else:
-            steps = [S.train_step(models, opt, sched, b, cfg, True, d)[0]
+            steps = [S._eager_train_step(models, opt, sched, b, cfg, True,
+                                         d)[0]
                      for b, d in zip(batches, draws)]
             losses = {k: torch.stack([s[k] for s in steps])
                       for k in steps[0]}
@@ -943,7 +951,7 @@ def test_multistep_graph_matches_eager_steps(device):
                         eager[name].parameters()):
             torch.testing.assert_close(a, b, rtol=5e-2, atol=1e-3)
     counts = _launches(*SWEEP, *L1)
-    graph = multi.graphs[True]
+    graph = S._captured[opt]
     multi(batches, draws, True)
     torch.cuda.synchronize()
     assert _grown(counts, *SWEEP, *L1) == (2, 2, 4, 4)
@@ -981,7 +989,8 @@ def test_multistep_resumes_from_either_device(device, written, tmp_path):
             runs[graphed] = S.make_train_multistep(resumed, ropt, rsched,
                                                    cfg)(batches, draws, True)
         else:
-            steps = [S.train_step(resumed, ropt, rsched, b, cfg, True, d)[0]
+            steps = [S._eager_train_step(resumed, ropt, rsched, b, cfg,
+                                         True, d)[0]
                      for b, d in zip(batches, draws)]
             runs[graphed] = {k: torch.stack([s[k] for s in steps])
                              for k in steps[0]}
@@ -992,6 +1001,164 @@ def test_multistep_resumes_from_either_device(device, written, tmp_path):
                                    rtol=1e-5, err_msg=k)
     np.testing.assert_allclose(got["loss"][1].item(), want["loss"][1].item(),
                                rtol=5e-3)
+
+
+def _rel_l2(got, want):
+    """Relative L2 distance of two lists of tensors (None where a
+    parameter has no gradient: both must be None)."""
+    assert [g is None for g in got] == [w is None for w in want]
+    pairs = [(g.float(), w.float()) for g, w in zip(got, want)
+             if w is not None]
+    num = sum(float((g - w).norm() ** 2) for g, w in pairs)
+    den = sum(float(w.norm() ** 2) for _, w in pairs)
+    return (num / den) ** 0.5 if den else num ** 0.5
+
+
+def _train_step_gaps(device, remat):
+    """Three steps from one state on three batches and draws, float32 at
+    64x96, 8 bins, batch 2 (``remat``: remat_batch_threshold 1), by two
+    eager runs (_eager_train_step) and one of train_step: what
+    test_train_step_graph_matches_eager_steps gates, each graphed reading
+    beside the two eager runs' own ("spread"), and the graphed run's
+    returned losses, counters and capture."""
+    from movedepth_tpu_torch.train import state as S
+    cfg = Config(height=64, width=96, num_depth_bins=8,
+                 compute_dtype="float32",
+                 **({"remat_batch_threshold": 1} if remat else {}))
+    assert P.remat_gate(2, cfg)[0] is remat
+    cpu_models = build_models(cfg, "cpu", torch.Generator().manual_seed(0))
+    with torch.no_grad():  # a few-pixel motion: no automask near-ties
+        for p in cpu_models["pose"].net[3].parameters():
+            p.mul_(40.0)
+    gen = torch.Generator(device).manual_seed(0)
+    batches = [P.synthetic_batch(cfg, 2, seed=s, device=device)
+               for s in (1, 2, 3)]
+    draws = [P.sample_draws(cfg, 2, gen, device) for _ in batches]
+    runs = {}
+    for label in ("eager", "again", "graphed"):
+        models = {k: copy.deepcopy(m).to(device)
+                  for k, m in cpu_models.items()}
+        opt, sched = S.create_optimizer(models, cfg)
+        step = S.train_step if label == "graphed" else S._eager_train_step
+        before = S.step_counts()
+        losses, first = [], None
+        for b, d in zip(batches, draws):
+            losses.append(step(models, opt, sched, b, cfg, True, d)[0])
+            if first is None:  # .grad and Adam's moments after step 1
+                first = {(n, key): [
+                    None if v is None else v.clone()
+                    for v in (p.grad if key == "grads" else
+                              opt.state.get(p, {}).get(key)
+                              for p in m.parameters())]
+                    for n, m in models.items()
+                    for key in ("grads", "exp_avg", "exp_avg_sq")}
+        torch.cuda.synchronize()
+        assert sched.last_epoch == 3
+        runs[label] = {
+            "losses": losses, "first": first, "models": models, "opt": opt,
+            "counted": {k: n - before[k] for k, n in S.step_counts().items()},
+            "graph": S._captured.get(opt)}
+
+    def rel(a, b):  # a loss of exactly 0 on both sides is equal
+        gap = abs(float(a) - float(b))
+        return gap / abs(float(b)) if float(b) else gap
+
+    def readings(run):
+        """Relative gaps of ``run`` from the first eager run."""
+        want, out = runs["eager"], {}
+        out["step 1 losses"] = max(rel(run["losses"][0][k], v)
+                                   for k, v in want["losses"][0].items())
+        for i in (1, 2):
+            out[f"step {i + 1} loss"] = rel(run["losses"][i]["loss"],
+                                            want["losses"][i]["loss"])
+        for (name, key), tensors in want["first"].items():
+            out[f"{name} step 1 {key}"] = _rel_l2(run["first"][name, key],
+                                                  tensors)
+        return out
+
+    return runs, readings(runs["graphed"]), readings(runs["again"])
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["shipped", "remat"])
+def test_train_step_graph_matches_eager_steps(device, remat):
+    """train_step on the card replays the optimizer's captured step: three
+    calls from one state against three eager steps (_eager_train_step) on
+    the same batches and draws, float32 at 64x96, 8 bins, batch 2, the
+    shipped options and with remat on. The tiers of
+    test_multistep_graph_matches_eager_steps: step 1's losses within 1e-5
+    relative, the later total losses within 5e-3, the parameters and the
+    BatchNorm statistics after the steps within rtol 5e-2 / atol 1e-3
+    (row 3's atomics sum in another order on every run); step 1's
+    gradients and Adam's moments after it (a warm-up left in them would
+    show there) within 5e-2 relative L2 a model or twice what a second
+    eager run reads, whichever is larger; Adam's step counts and the
+    BatchNorm step counts equal after the three steps. (Adam's moments
+    after three steps are not compared: through the automask's choices
+    and Adam's first steps two eager runs part there by up to ~20%
+    relative L2 in a model.) One capture and three replays are
+    counted, the three returned losses stay distinct after the third call,
+    and .grad holds the graph's gradients."""
+    from movedepth_tpu_torch.train import state as S
+    runs, got, spread = _train_step_gaps(device, remat)
+    eager, graphed = runs["eager"], runs["graphed"]
+    assert eager["counted"] == runs["again"]["counted"] == {
+        "train.step_graph_captures": 0, "train.step_graph_replays": 0,
+        "train.step_eager": 3}
+    assert graphed["counted"] == {"train.step_graph_captures": 1,
+                                  "train.step_graph_replays": 3,
+                                  "train.step_eager": 0}
+    assert len({float(step["loss"]) for step in graphed["losses"]}) == 3
+    tiers = {"step 1 losses": 1e-5, "step 2 loss": 5e-3,
+             "step 3 loss": 5e-3}
+    failed = {k: (v, spread[k]) for k, v in got.items()
+              if not v <= tiers.get(k, max(5e-2, 2 * spread[k]))}
+    assert not failed, ("graphed (eager spread)", failed)
+    for name, want in eager["models"].items():
+        models, opt, eopt = graphed["models"][name], graphed["opt"], \
+            eager["opt"]
+        for a, b in zip(models.parameters(), want.parameters()):
+            torch.testing.assert_close(a, b, rtol=5e-2, atol=1e-3)
+            assert float(opt.state[a]["step"]) == float(
+                eopt.state[b]["step"]) == 3
+        for (key, a), (_, b) in zip(models.named_buffers(),
+                                    want.named_buffers()):
+            if key.endswith("num_batches_tracked"):
+                assert torch.equal(a, b), (name, key)
+            else:
+                torch.testing.assert_close(a, b, rtol=5e-2, atol=1e-3,
+                                           msg=f"{name} {key}")
+    graph = graphed["graph"]
+    assert graph is S._captured[graphed["opt"]]
+    assert all(p.grad is g for p, g in zip(graph.params, graph.grads))
+
+
+def test_train_step_recaptures_on_a_new_key(device):
+    """A held capture serves every batch of its shapes; a switch of
+    use_z_bins and then a batch of another size each capture once more,
+    and the capture they replace is dropped (nothing holds it)."""
+    from movedepth_tpu_torch.train import state as S
+    cfg, cpu_models, batches, draws = _multistep_setup(device)
+    models = {k: copy.deepcopy(m).to(device) for k, m in cpu_models.items()}
+    opt, sched = S.create_optimizer(models, cfg)
+
+    def captures():
+        return trace.counter("train.step_graph_captures")
+
+    start = captures()
+    for b, d in zip(batches, draws):
+        S.train_step(models, opt, sched, b, cfg, True, d)
+    assert captures() == start + 1
+    held = weakref.ref(S._captured[opt])
+    S.train_step(models, opt, sched, batches[0], cfg, False, draws[0])
+    assert captures() == start + 2 and held() is None
+    held = weakref.ref(S._captured[opt])
+    gen = torch.Generator(device).manual_seed(3)
+    losses, _ = S.train_step(models, opt, sched,
+                             P.synthetic_batch(cfg, 3, seed=4, device=device),
+                             cfg, False, P.sample_draws(cfg, 3, gen, device))
+    assert captures() == start + 3 and held() is None
+    assert sched.last_epoch == 4
+    assert all(torch.isfinite(v) for v in losses.values())
 
 
 def test_capturable_adam_matches_float_adam(device):

@@ -82,7 +82,8 @@ def test_ddp_trainer_logs_equal_losses(trainer_ranks):
 def test_ddp_trainer_rank0_writes(trainer_ranks):
     """Rank 0 alone saves (weights_0 and last, once each) and writes one
     jsonl of metrics, each (mode, step) once; rank 1 prints nothing of the
-    trainer's (its lines are the CLI's own two)."""
+    trainer's (its lines are the CLI's own three: under a group every
+    step of the process, 2 in each of its three trainings, is eager)."""
     root, ranks = trainer_ranks
     assert [len(res["saves"]) for res in ranks] == [2, 0]
     models_dir = root / "log" / "t" / "models"
@@ -93,8 +94,12 @@ def test_ddp_trainer_rank0_writes(trainer_ranks):
     assert sorted((r["mode"], r["step"]) for r in rows) == [
         ("train", 0), ("train", 1), ("val", 0), ("val", 1)]
     assert "epoch 0: 2 steps" in ranks[0]["stdout"]
-    assert [ln.split(":")[0] for ln in ranks[1]["stdout"].splitlines()] \
-        == ["dist", "kernel launches"]
+    lines = ranks[1]["stdout"].splitlines()
+    assert [ln.split(":")[0] for ln in lines] \
+        == ["dist", "kernel launches", "train steps"]
+    assert json.loads(lines[2].split(": ", 1)[1]) == {
+        "train.step_graph_captures": 0, "train.step_graph_replays": 0,
+        "train.step_eager": 6}
 
 
 def test_ddp_trainer_restores_on_every_rank(trainer_ranks):

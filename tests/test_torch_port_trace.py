@@ -294,7 +294,11 @@ def device():
 @pytest.mark.cuda
 def test_spans_time_the_device_on_the_card(device, models):
     """Each span records a pair of CUDA events: device ms for every call
-    on the card; the forward's and the step's kernels are counted."""
+    on the card, but for the one call of each phase under the capture that
+    the card's first train_step makes after its WARMUP_STEPS eager steps
+    (its phases run WARMUP_STEPS + 1 times, all under ``train.step``); the
+    forward's and the step's kernels are counted, the warm-up's launches
+    and the replay's."""
     cuda_models = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
     trace.enable()
     _infer(cuda_models, device)
@@ -305,11 +309,17 @@ def test_spans_time_the_device_on_the_card(device, models):
     train = trace.summary()
     assert _parents(infer) == INFER_SPANS
     assert _parents(train) == TRAIN_SPANS
-    for name, s in {**infer["spans"], **train["spans"]}.items():
+    for name, s in infer["spans"].items():
         assert s["device_calls"] == s["calls"] >= 1, name
         assert s["device_ms"] > 0, name
+    for name, s in train["spans"].items():
+        phase = name != "train.step"
+        assert s["calls"] == (S.WARMUP_STEPS + 1 if phase else 1), name
+        assert s["device_calls"] == s["calls"] - phase, name
+        assert s["device_ms"] > 0, name
     assert infer["counters"]["launch.sweep_warp_corr"] == 1
-    assert train["counters"]["launch.sweep_warp"] == 1
+    assert train["counters"]["launch.sweep_warp"] == S.WARMUP_STEPS + 1
+    assert train["counters"]["train.step_graph_replays"] == 1
     trace.disable()
     trace.reset()
     _train(cuda_models, device, on=True, events=False)  # the host alone
@@ -337,7 +347,7 @@ def test_graph_replay_adds_captured_launches_once(device, models):
     fwd = trace.summary()["spans"]["train.forward"]
     assert fwd["calls"] == S.WARMUP_STEPS + 1  # the warm-up and the capture
     assert fwd["device_calls"] == S.WARMUP_STEPS  # none under the capture
-    graph = multi.graphs[True]
+    graph = S._captured[opt]
     per_replay = {k: n for k, n in graph.counts.items()
                   if k.startswith("launch.")}
     assert per_replay["launch.sweep_warp"] == 1
