@@ -65,10 +65,10 @@ without printing the final ok line:
    KITTI-layout tree of synthetic 1242x375 JPEGs at 640x192, batch 12,
    bfloat16, --kernel_l1, with the native loader (its default; the CLI
    must say so), 2 epochs with validation and checkpoints, then a resume
-   from ``last`` for a third epoch with ``--steps_per_dispatch 2`` (phase
-   14's dispatch: one CUDA graph of the step, replayed twice, Adam's state
-   from the checkpoint); its kernel launches, wall ms/step against phase
-   9b's train_step.
+   from ``last`` for a third epoch with ``--steps_per_dispatch 2`` (the
+   option is accepted, and each batch is one replay of a new capture of
+   the step, Adam's state from the checkpoint); its kernel launches, wall
+   ms/step against phase 9b's train_step.
 10a. the train loader, this slice's path: ``Loader.epoch`` over 240 train
    lines of synthetic 1242x375 JPEGs at batch 12, 640x192, with flips and
    jitter, 12 threads: the PIL path and the C++ loader in turns, two
@@ -103,14 +103,6 @@ without printing the final ok line:
    the loaded program against the live forward under phase 4's gates (and
    its worst difference), row 1's launches per call, loaded against live
    timed in turns.
-14. the multi-step dispatch, this slice's path: ``steps_per_dispatch`` 4
-   at bfloat16 batch 12, 640x192, kernel_l1: a CUDA graph of one step
-   against eager steps (step 1's losses and gradients, later steps beside
-   two eager runs' spread, and each replay against an eager step from its
-   state), ms/step eager against graphed in turns without a group and
-   under a world-1 nccl group, the memory the graph holds, launches of
-   rows 2, 3 and 4b per replay (the train CLI's dispatch runs in phase
-   10's resume).
 15. the training variants, this slice's path. 15a: Reg2D (4 bins) and the
    DCN head at 640x192, ResNet18: forward_infer_fused at batch 1 and one
    float32 train_step at batch 2, card against CPU under phase 4's and
@@ -1814,6 +1806,11 @@ def _check_folders(models_dir, names, want_models):
                       map_location="cpu", weights_only=True)["step"]
 
 
+# rows 2, 3 and 4b: the kernels a replay of the graphed kernel_l1 step runs
+GRAPHED_ROWS = ("sweep_warp", "sweep_warp_bwd", "warp_images_border_l1",
+                "warp_images_border_l1_coord_bwd")
+
+
 def phase_train_cli(l1_ms, card):
     """The train CLI as a user runs it, at the shipped width (640x192,
     batch 12, bfloat16) with --kernel_l1 and the default native loader, 2
@@ -1862,23 +1859,34 @@ def phase_train_cli(l1_ms, card):
             raise RuntimeError("expected one capture and 4 replays")
 
         last = os.path.join(models_dir, "last")
-        _, epochs2, launches2 = _train_cli(
+        lines2, epochs2, launches2 = _train_cli(
             common + ["--num_epochs", "3", "--load_weights_folder", last,
                       "--steps_per_dispatch", "2"], 360)
         step2 = _check_folders(models_dir, ("weights_2", "last"),
                                ALL_MODELS)
+        steps2 = [json.loads(ln.split(": ", 1)[1]) for ln in lines2
+                  if ln.startswith("train steps: ")]
         log(f"[cli] resume from last with --steps_per_dispatch 2: step "
             f"{step} -> {step2}, epochs {sorted(epochs2)}; kernel launches "
-            f"{launches2}")
+            f"{launches2}; train steps {steps2}")
         if step2 != 6 or sorted(epochs2) != [2] or epochs2[2][0] != 2:
             raise RuntimeError("the resume did not train epoch 2 from step 4")
+        if not any("steps_per_dispatch 2: one train step per batch (a "
+                   "replay of the captured step)" in ln for ln in lines2):
+            raise RuntimeError("the resume did not say that it takes one "
+                               "replayed step a batch")
+        if steps2 != [{"train.step_graph_captures": 1,
+                       "train.step_graph_replays": 2,
+                       "train.step_eager": 0}]:
+            raise RuntimeError("expected one capture and a replay a batch "
+                               "in the resume")
         if not all(launches2[r] for r in GRAPHED_ROWS):
             raise RuntimeError(f"the graphed resume launched no kernel of "
                                f"rows 2, 3 and 4b: {launches2}")
     walls = {e: ms for e, (_, ms, _) in
              sorted({**epochs, **epochs2}.items())}
-    log(f"[cli] trainer wall ms/step by epoch {walls} (epoch 2: one "
-        f"graphed dispatch of 2 steps, its warm-up and capture included) "
+    log(f"[cli] trainer wall ms/step by epoch {walls} (epoch 2: 2 "
+        f"replays, the new capture and its warm-up included) "
         f"against train_step with kernel_l1 {l1_ms:.3f} ms/step (phase 9b); "
         f"{card}")
     return launches, {e: warm for e, (_, _, warm) in epochs.items()}
@@ -2388,14 +2396,9 @@ def phase_ddp_overhead(cpu_models, card):
         f"{with_ms - without_ms:.3f} ms more; {card}")
 
 
-
-# ------------------------------------------------------------ phases 13-14
+# ------------------------------------------------------------------ phase 13
 
 EXPORT_RUNS = ((False, 1), (False, 128), (True, 1))  # (mono, batch)
-MULTISTEP_K = 4  # phase 14's steps per dispatch
-# rows 2, 3 and 4b: the kernels a replay of the graphed kernel_l1 step runs
-GRAPHED_ROWS = ("sweep_warp", "sweep_warp_bwd", "warp_images_border_l1",
-                "warp_images_border_l1_coord_bwd")
 
 
 def phase_export(cpu_models, card):
@@ -2476,228 +2479,6 @@ def phase_export(cpu_models, card):
             del loaded
     log(f"[export] phase 13: {time.perf_counter() - t_phase:.1f} s")
     return mvs_launches
-
-
-def _multistep_inputs(cfg, k):
-    """k synthetic batches at cfg.batch_size on the card and their draws
-    from one generator, as a trainer would draw them."""
-    import torch
-    from movedepth_tpu_torch import pipeline as P
-    gen = torch.Generator("cuda").manual_seed(4)
-    bsz = cfg.batch_size
-    batches = [P.synthetic_batch(cfg, bsz, seed=10 + i, device="cuda")
-               for i in range(k)]
-    return batches, [P.sample_draws(cfg, bsz, gen, "cuda") for _ in range(k)]
-
-
-def _multistep_equality(train_models, cfg, batches, draws):
-    """Phase 14's equality. (1) From one state, K eager steps
-    (``_eager_train_step``, twice:
-    their spread is the yardstick) against one graphed dispatch of K:
-    step 1's losses within 1e-5 relative, its gradients (the first
-    dispatch of (2)) per model under phase 8's rule (relative L2 at most
-    5e-3 or twice the eager runs' spread), step 2's total loss within the JAX test's loose
-    tier (5e-3, or twice the eager spread) and every parameter after K
-    steps within rtol 5e-2 / atol 1e-3; steps 3 to K are reported beside
-    the eager spread, not gated: the backward's atomics (row 3's float32
-    source gradient, cuDNN's bf16 weight gradients) sum in another order
-    on every run, and through the automask's discrete choices and Adam's
-    first steps (a flipped near-zero gradient moves a weight by 2 * lr) two
-    eager runs part by several percent there. (2) Every replay is exact:
-    K single-step dispatches in a row, each against one eager step from
-    the graphed models' state (parameters, statistics and Adam's state
-    copied in), every loss within 1e-5 relative at every step."""
-    import torch
-    from movedepth_tpu_torch.train import state as S
-    k = len(batches)
-
-    def fresh():
-        models = {n: copy.deepcopy(m).cuda() for n, m in train_models.items()}
-        return (models,) + S.create_optimizer(models, cfg)
-
-    def eager():
-        models, opt, sched = fresh()
-        losses = []
-        for i in range(k):
-            losses.append(S._eager_train_step(models, opt, sched,
-                                              batches[i], cfg, True,
-                                              draws[i])[0])
-            if i == 0:
-                grads = {n: [p.grad.clone() for p in m.parameters()]
-                         for n, m in models.items()}
-        return models, losses, grads
-
-    def grad_rel(got, want):
-        return {n: (sum(float((a - b).norm() ** 2)
-                        for a, b in zip(got[n], want[n]))
-                    / sum(float(b.norm() ** 2) for b in want[n])) ** 0.5
-                for n in want}
-
-    rel = _rel  # a loss of exactly 0 on both sides is equal, not a crash
-
-    models, eager_losses, grads1 = eager()
-    _, spread_losses, spread_grads = eager()
-    many = fresh()
-    got = S.make_train_multistep(*many, cfg)(batches, draws, True)
-    failed = []
-    worst1 = max((rel(got[key][0], eager_losses[0][key]), key)
-                 for key in eager_losses[0])
-    if not worst1[0] <= 1e-5:
-        failed.append(f"step 1 loss {worst1[1]} off by {worst1[0]:.3e}")
-    later = [(rel(got["loss"][i], eager_losses[i]["loss"]),
-              rel(spread_losses[i]["loss"], eager_losses[i]["loss"]))
-             for i in range(1, k)]
-    if not later[0][0] <= max(5e-3, 2 * later[0][1]):
-        failed.append(f"step 2 loss off by {later[0][0]:.3e} (eager spread "
-                      f"{later[0][1]:.3e})")
-    with torch.no_grad():
-        excess = max(float(((a - b).abs() - 1e-3 - 5e-2 * b.abs()).max())
-                     for n in models for a, b in
-                     zip(many[0][n].parameters(), models[n].parameters()))
-    if not excess <= 0:
-        failed.append(f"parameters after {k} steps off the loose tier by "
-                      f"{excess:.3e}")
-
-    graphed, (ref, ref_opt, ref_sched) = fresh(), fresh()
-    multi = S.make_train_multistep(*graphed, cfg)
-    synced = []
-    for i in range(k):
-        with torch.no_grad():
-            for n, m in graphed[0].items():
-                for a, b in zip(ref[n].parameters(), m.parameters()):
-                    a.copy_(b)
-                    for key, v in graphed[1].state.get(b, {}).items():
-                        if a in ref_opt.state:
-                            ref_opt.state[a][key].copy_(v)
-                for a, b in zip(ref[n].buffers(), m.buffers()):
-                    a.copy_(b)
-        want = S._eager_train_step(ref, ref_opt, ref_sched, batches[i], cfg,
-                                   True, draws[i])[0]
-        step = multi(batches[i:i + 1], draws[i:i + 1], True)
-        synced.append(max(rel(step[key][0], want[key]) for key in want))
-        zeros = [key for key in want if float(want[key]) == 0.0]
-        if zeros:
-            log(f"[multistep] replay {i + 1}: eager losses exactly 0: {zeros}"
-                f", graphed {[float(step[key][0]) for key in zeros]}")
-        if i == 0:  # a dispatch of 1 from the first state: step 1's grads
-            gaps = grad_rel({n: [p.grad for p in m.parameters()]
-                             for n, m in graphed[0].items()}, grads1)
-    failed += [f"replay {i + 1} loss off its eager step by {v:.3e}"
-               for i, v in enumerate(synced) if not v <= 1e-5]
-    spread = grad_rel(spread_grads, grads1)
-    failed += [f"step 1 gradient of {n} rel L2 {v:.3e} (eager spread "
-               f"{spread[n]:.3e})" for n, v in gaps.items()
-               if not v <= max(5e-3, 2 * spread[n])]
-    log(f"[multistep] {k} eager steps (twice) vs one graphed dispatch: "
-        f"step 1 worst loss rel {worst1[0]:.3e} ({worst1[1]}); "
-        "step 1 gradient rel L2 by model, graphed (eager spread) " + ", ".join(
-            f"{n} {v:.3e} ({spread[n]:.3e})" for n, v in gaps.items())
-        + "; later steps' total loss rel, graphed (eager spread) " + ", ".join(
-            f"{v:.3e} ({e:.3e})" for v, e in later)
-        + f"; parameters after {k} steps: worst excess over rtol 5e-2 / "
-        f"atol 1e-3 {excess:.3e}; each replay against an eager step from "
-        "its state, worst loss rel " + ", ".join(f"{v:.3e}" for v in synced))
-    if failed:
-        raise RuntimeError("14 equality gates failed: " + "; ".join(failed))
-
-
-def _multistep_turns(train_models, cfg, batches, draws, card, group=None):
-    """ms/step of K eager steps (``_eager_train_step``) against one graphed
-    dispatch of K,
-    in turns (eager, graphed, graphed, eager; CUDA events around the K
-    steps, median of 3 after 1 warmup), the capture before them; the peak
-    memory allocated in the eager turns, and the memory the graph holds
-    (reserved after its capture, beyond what was reserved before it); then
-    the launches of rows 2, 3 and 4b per graphed step, counted from 0 over
-    one dispatch. With ``group`` the
-    models carry SyncBatchNorm and both paths the group."""
-    import torch
-    from movedepth_tpu_torch.parallel.sync_bn import convert_sync_batchnorm
-    from movedepth_tpu_torch.train import state as S
-    k = len(batches)
-
-    def fresh():
-        models = {n: copy.deepcopy(m).cuda() for n, m in train_models.items()}
-        if group is not None:
-            convert_sync_batchnorm(models, group)
-        return (models,) + S.create_optimizer(models, cfg)
-
-    eager_models, eager_opt, eager_sched = fresh()
-    graphed = fresh()
-    multi = S.make_train_multistep(*graphed, cfg, group)
-
-    def eager():
-        for b, d in zip(batches, draws):
-            S._eager_train_step(eager_models, eager_opt, eager_sched, b, cfg,
-                                True, d, group)
-
-    # what the graph holds: its private pool (one step's activations) and
-    # its static tensors, reserved for as long as the graph lives
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_reserved()
-    multi(batches, draws, True)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    held = (torch.cuda.memory_reserved() - before) / 2 ** 30
-    turns = {"eager": [], "graphed": []}
-    peaks = []
-    for label in ("eager", "graphed", "graphed", "eager"):
-        fn = eager if label == "eager" else (
-            lambda: multi(batches, draws, True))
-        torch.cuda.reset_peak_memory_stats()
-        turns[label].append(cuda_ms(fn, runs=3, warmup=1) / k)
-        if label == "eager":
-            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-    _zero_launch_counts()
-    multi(batches, draws, True)
-    torch.cuda.synchronize()
-    launches = {n: v / k for n, v in _launch_counts().items()}
-    where = "world-1 nccl group" if group is not None else "no group"
-    log(f"[multistep] bfloat16 batch {cfg.batch_size}, 640x192, kernel_l1, "
-        f"K={k}, {where}: ms/step in turns eager {turns['eager']}, graphed "
-        f"{turns['graphed']}; peak allocated in the eager turns {peaks} "
-        f"GiB (both model sets resident), the graph holds {held:.3f} GiB "
-        f"more (reserved after its capture); launches per graphed step "
-        f"{launches}; {card}")
-    if not all(launches[r] for r in GRAPHED_ROWS):
-        raise RuntimeError(f"14: rows 2, 3 and 4b must launch in a replay: "
-                           f"{launches}")
-    return launches
-
-
-def phase_multistep(train_models, card):
-    """Phase 14: the multi-step dispatch (``steps_per_dispatch``, a CUDA
-    graph of one train step replayed K times) in the shipped config with
-    kernel_l1 (bfloat16, batch 12, 640x192), K = MULTISTEP_K: equality
-    against eager steps (``_multistep_equality``), ms/step and peak memory
-    eager against graphed without a group and at world 1 under an nccl
-    group (phase 12c's set-up), launches per graphed step. Returns the
-    launches per graphed step (no group)."""
-    import torch
-    from movedepth_tpu_torch import Config
-    from movedepth_tpu_torch.parallel import dist as D
-
-    t_phase = time.perf_counter()
-    cfg = Config(kernel_l1=True)
-    torch.backends.cudnn.benchmark = True
-    batches, draws = _multistep_inputs(cfg, MULTISTEP_K)
-    _multistep_equality(train_models, cfg, batches, draws)
-    launches = _multistep_turns(train_models, cfg, batches, draws, card)
-    with tempfile.TemporaryDirectory() as tmp:
-        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
-        try:
-            D.initialize_distributed(
-                "cuda", init_method=f"file://{os.path.join(tmp, 'rdzv')}")
-            _multistep_turns(train_models, cfg, batches, draws, card,
-                             D.default_group())
-        finally:
-            if D.is_distributed():
-                torch.distributed.destroy_process_group()
-            for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
-                os.environ.pop(k, None)
-    log(f"[multistep] phase 14: {time.perf_counter() - t_phase:.1f} s")
-    return launches
 
 
 # ------------------------------------------------------------------ phase 15
@@ -3069,8 +2850,8 @@ def phase_remat(card):
     relative and every count equal; launches (the recompute runs row 2
     and the frame blocks' row 4b again). ms/step and peak memory of the
     three in turns (2 warm-up steps, median of 3). Then the remat step
-    with bfloat16 parameters as a CUDA graph (steps_per_dispatch 2), each
-    replay against two eager steps from its state: the losses and every
+    with bfloat16 parameters as a CUDA graph (two train_step calls, the
+    first capturing), each replay against two eager steps from its state: the losses and every
     buffer bit for bit; the parameters and Adam moments of each model bit
     for bit where the two eager steps agree on all of that model's
     tensors, else within max(5e-3, twice the eager steps' distance)
@@ -3178,7 +2959,6 @@ def phase_remat(card):
     names = [(n, len(list(m.parameters())),
               len(list(m.parameters())) + len(list(m.buffers())))
              for n, m in graphed[0].items()]
-    multi = S.make_train_multistep(*graphed, gcfg)
     failed = []
     for i in range(2):
         start = _train_state(*graphed[:2])
@@ -3189,8 +2969,9 @@ def phase_remat(card):
                                          batches[i], gcfg, True,
                                          step_draws[i])[0]
             eager.append((losses, _train_state(ref_models, ref_opt)))
-        got = multi(batches[i:i + 1], step_draws[i:i + 1], True)
-        exact = all(torch.equal(got[k][0], eager[0][0][k])
+        got = S.train_step(*graphed, batches[i], gcfg, True,
+                           step_draws[i])[0]
+        exact = all(torch.equal(got[k], eager[0][0][k])
                     for k in eager[0][0])
         again = all(torch.equal(eager[1][0][k], eager[0][0][k])
                     for k in eager[0][0])
@@ -3519,8 +3300,6 @@ def main():
         done("12c")
         kernel["launches_13"] = phase_export(cpu_models, card)
         done("13")
-        graphed = phase_multistep(train_models, card)
-        done("14")
         variant_launches = phase_variant_paths(card)
         d4 = phase_kernels_d4(card)
         done("15a")
@@ -3537,7 +3316,6 @@ def main():
             rec["launches_12a"] = ddp_cli[rec["name"]]
         if rec["name"] in ddp_ranks:
             rec["launches_12b"] = ddp_ranks[rec["name"]]
-        rec["launches_14"] = graphed[rec["name"]]
         rec["launches_15c"] = remat[rec["name"]]
         rec["launches_15d"] = rt_cli[rec["name"]]
     for rec in [kernel] + train_kernels + l1_kernels:

@@ -3,7 +3,8 @@
 Every field keeps the JAX package's name and default, so an ``opt.json``
 written by either package loads in the other. Some fields steer only the
 TPU formulation (scoped-VMEM limits, kernel windows, the planar loss
-layout); the port accepts them and reads the ones it implements.
+layout, the multi-step scan of ``steps_per_dispatch``); the port accepts
+them and reads the ones it implements.
 ``native_loader`` selects the port's own C++ loader, as it does the JAX
 package's. The TPU-only helpers of the JAX module
 (``xla_compiler_options``, ``KERNEL_TIERS``) are not copied.
@@ -110,11 +111,7 @@ class Config:
     # train batches (per card) above this rematerialize the MVS trunk and
     # the photometric frame blocks (torch.utils.checkpoint)
     remat_batch_threshold: int = 24
-    # train steps per dispatch. On the card without a process group each
-    # step, K = 1 included, is a replay of one captured CUDA graph of the
-    # step (train/state.py train_step); K > 1 replays it K times a call
-    # (make_train_multistep), under an nccl group too
-    steps_per_dispatch: int = 1
+    steps_per_dispatch: int = 1  # JAX package only
     scoped_vmem_limit_kib: int = 32768  # JAX package only
     infer_scoped_vmem_limit_kib: int = 40960  # JAX package only
     # "full": the encoders rematerialize too; "mvs": the blocks above only

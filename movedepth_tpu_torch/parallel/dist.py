@@ -146,22 +146,15 @@ def broadcast_models(models: Mapping[str, torch.nn.Module], group=None):
                 t.copy_(part.view_as(t))
 
 
-def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None,
-                     check: bool = True):
+def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None):
     """Average every parameter's ``.grad`` over the ranks: one coalesced
     all-reduce (per gradient dtype), divided by the world size; call it
     after ``backward()`` and before the optimizer step. A parameter whose
     ``.grad`` is None must be None on every rank (every rank runs the same
-    graph): with ``check`` the all-reduce carries one slot a parameter
-    counting the ranks that hold a gradient, and a count other than 0 or
-    the world size raises. That check reads the counts on the host, which
-    a CUDA graph's capture forbids (the counts are exact in bfloat16 up to
-    256 ranks, so bfloat16 gradients carry them in their own all-reduce):
-    a captured step passes ``check=False``,
-    and the eager warm-up steps before its capture make the check (a
-    replay cannot change which gradients exist). The bytes all-reduced
-    are counted as ``all_reduce_bytes``. No-op without a process
-    group."""
+    graph): the all-reduce carries one slot a parameter counting the ranks
+    that hold a gradient, and a count other than 0 or the world size
+    raises. The bytes all-reduced are counted as ``all_reduce_bytes``.
+    No-op without a process group."""
     if not is_distributed():
         return
     world = dist.get_world_size(group)
@@ -169,21 +162,19 @@ def all_reduce_grads(models: Mapping[str, torch.nn.Module], group=None,
               for p in models[name].parameters()]
     for dtype in sorted({p.dtype for p in params}, key=str):
         same = [p for p in params if p.dtype == dtype]
-        slots = len(same) if check else 0
         flat = torch.cat(
             [p.grad.reshape(-1) if p.grad is not None
              else p.new_zeros(p.numel()) for p in same]
-            + ([torch.tensor([p.grad is not None for p in same], dtype=dtype,
-                             device=same[0].device)] if check else []))
+            + [torch.tensor([p.grad is not None for p in same], dtype=dtype,
+                            device=same[0].device)])
         dist.all_reduce(flat, group=group)
         trace.count("all_reduce_bytes", flat.numel() * flat.element_size())
-        if check:
-            counts = flat[-slots:].tolist()
-            if any(c not in (0, world) for c in counts):
-                raise RuntimeError(
-                    "ranks disagree on which parameters have a gradient: "
-                    f"{sum(c not in (0, world) for c in counts)} parameters")
-        parts = flat[:flat.numel() - slots].div_(world).split(
+        counts = flat[-len(same):].tolist()
+        if any(c not in (0, world) for c in counts):
+            raise RuntimeError(
+                "ranks disagree on which parameters have a gradient: "
+                f"{sum(c not in (0, world) for c in counts)} parameters")
+        parts = flat[:-len(same)].div_(world).split(
             [p.numel() for p in same])
         held = [(p.grad, part.view_as(p)) for p, part in zip(same, parts)
                 if p.grad is not None]

@@ -163,7 +163,8 @@ def as_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
         for k, v in batch.items():
             with trace.span("as_batch.host_copy"):
                 host = torch.from_numpy(np.array(v))
-            count_h2d((host,))
+            trace.count("h2d_bytes", host.nbytes)
+            trace.count("h2d_pageable_bytes", host.nbytes)
             out[k] = host.to(device)
         return out
     index = torch.cuda.current_device() if device.index is None \
@@ -182,15 +183,6 @@ def as_batch(batch: Dict[str, np.ndarray], device) -> Dict[str,
             trace.count("h2d_staged_bytes", dst.nbytes)
             out[k] = dst
     return out
-
-
-def count_h2d(tensors):
-    """Count the bytes of host ``tensors`` put to the device: all of them
-    (``h2d_bytes``) and the pageable ones (``h2d_pageable_bytes``)."""
-    tensors = list(tensors)
-    trace.count("h2d_bytes", sum(t.nbytes for t in tensors))
-    trace.count("h2d_pageable_bytes",
-                sum(t.nbytes for t in tensors if not t.is_pinned()))
 
 
 def synthetic_batch(cfg: Config, batch_size: int, seed: int = 0,

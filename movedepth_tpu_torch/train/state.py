@@ -1,5 +1,5 @@
-"""Optimizer, learning-rate schedule, the train step and the multi-step
-dispatch (port of movedepth_tpu/train/state.py).
+"""Optimizer, learning-rate schedule and the train step (port of
+movedepth_tpu/train/state.py).
 
 Adam with two learning-rate groups: the MVS group (mask_cnn, mvs_encoder,
 reg3d) runs at ``learning_rate * lr_fac``, the rest at ``learning_rate``.
@@ -11,12 +11,11 @@ the card Adam is ``capturable``: one train step (forward, losses,
 backward, Adam) is captured as a CUDA graph and replayed. On the card and
 without a process group, :func:`train_step` replays that graph, one step
 a call, as the JAX package dispatches one compiled step; on the CPU and
-under any process group it runs the step eagerly.
-:func:`make_train_multistep` (``steps_per_dispatch`` K > 1, the JAX
-package's multi-step scan) replays the same capture K times a call; a
-rematerialized step (``remat_batch_threshold``, pipeline.py) captures
-too. The XLA-only levers of the JAX package (compiler options,
-scoped-VMEM limits) have no counterpart.
+under any process group it runs the step eagerly. A rematerialized step
+(``remat_batch_threshold``, pipeline.py) captures too. The JAX package's
+multi-step scan (``steps_per_dispatch``) and its XLA-only levers
+(compiler options, scoped-VMEM limits) have no counterpart: every step is
+one :func:`train_step` call.
 
 How often each path ran is counted in the tracer's counters
 (:func:`step_counts`): ``train.step_graph_captures``,
@@ -30,7 +29,6 @@ import weakref
 from typing import Dict
 
 import torch
-import torch.distributed as dist
 
 from movedepth_tpu_torch import trace
 from movedepth_tpu_torch.config import Config
@@ -120,12 +118,11 @@ def _detached(tree):
     return tree.detach()
 
 
-def _step_body(models, optimizer, batch, cfg, use_z_bins, draws, group,
-               check_grads=True):
-    """forward_train, backward, the gradient all-reduce, Adam: the part of
-    a step that a CUDA graph captures (``check_grads=False``: the
-    all-reduce's host check of which gradients exist stays out). Each
-    phase is a span: ``train.forward``, ``train.backward``,
+def _step_body(models, optimizer, batch, cfg, use_z_bins, draws,
+               group=None):
+    """forward_train, backward, the gradient all-reduce (with a process
+    ``group``), Adam: the part of a step that a CUDA graph captures (with
+    no group). Each phase is a span: ``train.forward``, ``train.backward``,
     ``train.all_reduce``, ``train.optimizer``."""
     with trace.span("train.forward"):
         total, losses, outputs = forward_train(models, batch, cfg,
@@ -134,7 +131,7 @@ def _step_body(models, optimizer, batch, cfg, use_z_bins, draws, group,
         total.backward()
     if group is not None:
         with trace.span("train.all_reduce"):
-            all_reduce_grads(models, group, check_grads)
+            all_reduce_grads(models, group)
     with trace.span("train.optimizer"):
         optimizer.step()
     return losses, outputs
@@ -184,8 +181,8 @@ def train_step(models, optimizer, schedule, batch, cfg: Config,
     for m in models.values():
         if not m.training:  # the graph runs in train mode whatever the flag
             m.train()
-    graph = _step_graph(models, optimizer, cfg, bool(use_z_bins), group,
-                        batch, draws)
+    graph = _step_graph(models, optimizer, cfg, bool(use_z_bins), batch,
+                        draws)
     losses = graph.replay(batch, draws)
     schedule.step()
     graph.restore_grads()
@@ -231,7 +228,7 @@ def _static_draws(draws, device):
 
 
 def _signature(use_z_bins, batch, draws):
-    """What a capture is keyed on besides the config and the group:
+    """What a capture is keyed on besides the config:
     ``use_z_bins`` and the shapes and dtypes of the batch and the draws."""
     def sig(v):
         return ((tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
@@ -246,15 +243,15 @@ class _StepGraph:
     and its draws), the stacked losses and the outputs it writes, the
     gradients it owns, and what the tracer's counters count in one replay
     (``counts``, read at capture, taken back off the counters then and
-    added per replay: the kernel wrappers and the all-reduce count in
-    Python, which a replay does not run). ``serves`` says whether it takes
-    a step of the given key, config, group and optimizer state."""
+    added per replay: the kernel wrappers count in Python, which a replay
+    does not run). ``serves`` says whether it takes a step of the given
+    key, config and optimizer state."""
 
-    def __init__(self, models, optimizer, cfg, use_z_bins, group, batch,
-                 draws, stream):
+    def __init__(self, models, optimizer, cfg, use_z_bins, batch, draws,
+                 stream):
         device = batch["color"].device
         self.key = _signature(use_z_bins, batch, draws)
-        self.cfg, self.group, self.state = cfg, group, optimizer.state
+        self.cfg, self.state = cfg, optimizer.state
         self.batch = {k: v.clone() for k, v in batch.items()}
         self.draws = _static_draws(draws, device)
         self.params = [p for name in sorted(models)
@@ -264,9 +261,8 @@ class _StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph, stream=stream):
-                losses, outputs = _step_body(
-                    models, optimizer, self.batch, cfg, use_z_bins,
-                    self.draws, group, check_grads=False)
+                losses, outputs = _step_body(models, optimizer, self.batch,
+                                             cfg, use_z_bins, self.draws)
                 self.keys = list(losses)
                 self.losses = torch.stack([losses[k].detach().float()
                                            for k in self.keys])
@@ -279,12 +275,11 @@ class _StepGraph:
                 trace.count(k, -n)
         self.grads = [p.grad for p in self.params]
 
-    def serves(self, key, cfg, group, optimizer) -> bool:
-        """The same inputs' shapes and dtypes, config and group, and the
-        optimizer state the graph updates (a ``load_state_dict`` puts in
-        new tensors)."""
-        return (key == self.key and group is self.group
-                and optimizer.state is self.state
+    def serves(self, key, cfg, optimizer) -> bool:
+        """The same inputs' shapes and dtypes and config, and the optimizer
+        state the graph updates (a ``load_state_dict`` puts in new
+        tensors)."""
+        return (key == self.key and optimizer.state is self.state
                 and (cfg is self.cfg or cfg == self.cfg))
 
     def replay(self, batch, draws):
@@ -315,11 +310,11 @@ class _StepGraph:
 _captured: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _step_graph(models, optimizer, cfg, use_z_bins, group, batch, draws):
-    """The optimizer's captured step, the one :func:`train_step` and the
-    multi-step dispatch replay. One capture is held per optimizer. A call
-    it does not serve (another ``use_z_bins``, config, group, batch or
-    draw shape or dtype, or optimizer state) drops it, so that its memory
+def _step_graph(models, optimizer, cfg, use_z_bins, batch, draws):
+    """The optimizer's captured step, the one :func:`train_step` replays.
+    One capture is held per optimizer. A call it does not serve (another
+    ``use_z_bins``, config, batch or draw shape or dtype, or optimizer
+    state) drops it, so that its memory
     pool is freed, and captures anew: WARMUP_STEPS eager steps on this
     batch on a side stream, the models' parameters and buffers and Adam's
     state put back as they were (:func:`_warm_up`), then the capture,
@@ -327,21 +322,20 @@ def _step_graph(models, optimizer, cfg, use_z_bins, group, batch, draws):
     fallback to eager steps. Counts ``train.step_graph_captures``."""
     key = _signature(use_z_bins, batch, draws)
     graph = _captured.get(optimizer)
-    if graph is not None and graph.serves(key, cfg, group, optimizer):
+    if graph is not None and graph.serves(key, cfg, optimizer):
         return graph
     if graph is not None:
         del _captured[optimizer], graph
         optimizer.zero_grad(set_to_none=True)  # its gradients go with it
     stream = torch.cuda.Stream(batch["color"].device)
-    _warm_up(models, optimizer, cfg, use_z_bins, group, batch, draws, stream)
+    _warm_up(models, optimizer, cfg, use_z_bins, batch, draws, stream)
     graph = _captured[optimizer] = _StepGraph(
-        models, optimizer, cfg, use_z_bins, group, batch, draws, stream)
+        models, optimizer, cfg, use_z_bins, batch, draws, stream)
     trace.count("train.step_graph_captures")
     return graph
 
 
-def _warm_up(models, optimizer, cfg, use_z_bins, group, batch, draws,
-             stream):
+def _warm_up(models, optimizer, cfg, use_z_bins, batch, draws, stream):
     """WARMUP_STEPS eager steps on ``stream``, then the models' parameters
     and buffers and Adam's state as they were (Adam's state that the
     warm-up created is zeroed: a fresh Adam's)."""
@@ -355,8 +349,7 @@ def _warm_up(models, optimizer, cfg, use_z_bins, group, batch, draws,
     with torch.cuda.stream(stream):
         for _ in range(WARMUP_STEPS):
             optimizer.zero_grad(set_to_none=True)
-            _step_body(models, optimizer, batch, cfg, use_z_bins, draws,
-                       group)
+            _step_body(models, optimizer, batch, cfg, use_z_bins, draws)
         with torch.no_grad():
             for t, s in zip(params + buffers, saved):
                 t.copy_(s)
@@ -367,61 +360,3 @@ def _warm_up(models, optimizer, cfg, use_z_bins, group, batch, draws,
                     else:
                         v.zero_()
     torch.cuda.current_stream(device).wait_stream(stream)
-
-
-class _TrainMultistep:
-    """K train steps per call: ``(batches, draws, use_z_bins) -> losses``,
-    each loss stacked (K,) on the device, the steps exactly K sequential
-    :func:`train_step` calls on the same batches and draws (the image
-    outputs are not copied out).
-
-    On the card each call replays the optimizer's captured step
-    (:func:`_step_graph`, the capture :func:`train_step` replays too) once
-    per batch, each batch and its draws copied into the graph's static
-    inputs and the schedule's rate written in between: no host read of the
-    device inside a call. On the CPU a call is K eager :func:`train_step`
-    calls."""
-
-    def __init__(self, models, optimizer, schedule, cfg: Config, group=None):
-        self.models, self.optimizer = models, optimizer
-        self.schedule, self.cfg, self.group = schedule, cfg, group
-        self.device = next(p.device for m in models.values()
-                           for p in m.parameters())
-        if (self.device.type == "cuda" and group is not None
-                and dist.get_backend(group) != "nccl"):
-            raise ValueError(
-                "steps_per_dispatch > 1 on the card captures the step as "
-                "a CUDA graph, which needs an nccl group: gloo "
-                f"collectives cannot be captured (got "
-                f"{dist.get_backend(group)})")
-
-    def __call__(self, batches, draws, use_z_bins: bool):
-        if len(batches) != len(draws):
-            raise ValueError(f"{len(batches)} batches, {len(draws)} draws")
-        if self.device.type != "cuda":
-            steps = [train_step(self.models, self.optimizer, self.schedule,
-                                b, self.cfg, use_z_bins, d, self.group)[0]
-                     for b, d in zip(batches, draws)]
-            return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
-        for m in self.models.values():
-            m.train()
-        graph = _step_graph(self.models, self.optimizer, self.cfg,
-                            bool(use_z_bins), self.group, batches[0],
-                            draws[0])
-        rows = []
-        for batch, draw in zip(batches, draws):
-            rows.append(graph.replay(batch, draw))
-            self.schedule.step()
-        graph.restore_grads()
-        stacked = torch.stack(rows, dim=1)
-        return dict(zip(graph.keys, stacked.unbind()))
-
-
-def make_train_multistep(models, optimizer, schedule, cfg: Config,
-                         group=None) -> _TrainMultistep:
-    """K real train steps per dispatch (the JAX package's
-    ``make_train_multistep``, an on-device ``lax.scan``), called as
-    ``(batches, draws, use_z_bins)`` with K batches and K draws; see
-    :class:`_TrainMultistep`. With a process group on the card, that group
-    must be nccl's (raises otherwise)."""
-    return _TrainMultistep(models, optimizer, schedule, cfg, group)

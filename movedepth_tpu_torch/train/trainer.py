@@ -30,17 +30,13 @@ where the saved run left off. A reference folder without it starts at step
 Each step is ``train.state.train_step``: on the card without a process
 group, a replay of one captured CUDA graph of the step (captured at the
 first step and again once when ``ztrans_start_epc`` turns the z-guided
-bins on); on the CPU and under a process group, eager. With
-``steps_per_dispatch`` K > 1 an epoch runs in groups of K batches through
-``train.state.make_train_multistep`` (on the card, K replays of the same
-capture a call, under an nccl group too; a gloo group on the card
-raises), with the step and batch accounting of the single-step loop; the
-tail of fewer than K batches runs as single steps.
+bins on); on the CPU and under a process group, eager. Every batch is
+one such step: ``steps_per_dispatch`` (the JAX package's multi-step
+scan) is accepted and changes nothing here.
 """
 
 from __future__ import annotations
 
-import itertools
 import json
 import os
 import time
@@ -193,10 +189,6 @@ class Trainer:
 
         self.optimizer, self.schedule = S.create_optimizer(
             self.models, cfg, self.steps_per_epoch)
-        self.train_multistep = (
-            S.make_train_multistep(self.models, self.optimizer,
-                                   self.schedule, cfg, group)
-            if cfg.steps_per_dispatch > 1 else None)
         self.step = 0  # optimizer steps taken
 
         if cfg.weights_init == "pretrained":
@@ -236,7 +228,8 @@ class Trainer:
     def _startup_line(self) -> str:
         """What reads each dataset (robust_train's offsets included), the
         parameters' storage type, the rematerialization at the configured
-        batch and, on the card, whether cuDNN times its algorithms."""
+        batch, on the card whether cuDNN times its algorithms, and with
+        ``steps_per_dispatch`` above 1 that each batch is one step."""
         cfg = self.cfg
         native = self.train_dataset.native
         rt = (" (train with robust_train's frame offsets)"
@@ -260,6 +253,11 @@ class Trainer:
         params = (f"parameters {cfg.param_dtype}" if cfg.param_dtype ==
                   "float32" else f"parameters {cfg.param_dtype} (BatchNorm "
                   "statistics float32)")
+        if cfg.steps_per_dispatch > 1:
+            kind = ("a replay of the captured step"
+                    if S.step_graphed(self.device, self.group) else "eager")
+            remat += (f"; steps_per_dispatch {cfg.steps_per_dispatch}: one "
+                      f"train step per batch ({kind})")
         return f"{data}\n{params}; {remat}"
 
     # ------------------------------------------------------------- loading
@@ -282,10 +280,10 @@ class Trainer:
 
     @trace.traced("trainer.put")
     def _put(self, batch):
-        host = {k: torch.from_numpy(v) for k, v in batch.items()
-                if k != "depth_gt"}
-        P.count_h2d(host.values())
-        return {k: v.to(self.device) for k, v in host.items()}
+        """The batch's arrays but ``depth_gt`` on the device
+        (``pipeline.as_batch``); ``depth_gt`` stays on the host."""
+        return P.as_batch({k: v for k, v in batch.items()
+                           if k != "depth_gt"}, self.device)
 
     def _draws(self, rows):
         """This rank's draws for a batch of ``rows`` rows. Ranks draw for
@@ -408,65 +406,19 @@ class Trainer:
         if cfg.save_intermediate_models and step % 2000 == 0:
             self.save(epoch=self.epoch, snapshot_step=step)
 
-    def _dispatch(self, group, batch_idx, use_z):
-        """K = len(group) steps in one call of the multi-step dispatch.
-        The losses are read at the log events after it; there the image
-        outputs and Garg metrics come from a no-grad ``forward_train`` of
-        the models in eval mode on one more draw (the dispatch does not
-        materialize them), and a ``save_intermediate_models`` snapshot
-        holds the end-of-group state, up to K-1 steps past its label, as
-        in the JAX package."""
-        cfg = self.cfg
-        k = len(group)
-        device_batches = [self._put(b) for b in group]
-        draws = [self._draws(b["color"].shape[0]) for b in group]
-        losses = self.train_multistep(device_batches, draws, use_z)
-        start = self.step
-        self.step += k
-        for s in range(k):
-            step = start + s
-            if self._log_cadence(batch_idx + s, step):
-                outputs = self._train_outputs(device_batches[s], use_z)
-                self._log_step(group[s],
-                               {key: v[s] for key, v in losses.items()},
-                               outputs, batch_idx + s, step, use_z)
-            if cfg.save_intermediate_models and step % 2000 == 0:
-                self.save(epoch=self.epoch, snapshot_step=step)
-
-    @torch.no_grad()
-    def _train_outputs(self, device_batch, use_z):
-        for m in self.models.values():
-            m.eval()
-        _, _, outputs = P.forward_train(
-            self.models, device_batch, self.cfg, use_z,
-            self._draws(device_batch["color"].shape[0]), self.group)
-        return outputs
-
     def run_epoch(self):
-        """One epoch: single train_steps, or with ``steps_per_dispatch`` K
-        > 1 groups of K batches through the multi-step dispatch and a tail
-        of single steps (``profile_steps`` traces single steps only)."""
-        cfg = self.cfg
-        use_z = self.epoch > cfg.ztrans_start_epc
-        k = cfg.steps_per_dispatch
+        """One epoch: a train_step a batch."""
+        use_z = self.epoch > self.cfg.ztrans_start_epc
         t_epoch = time.perf_counter()
         self._rate_mark = (t_epoch, self.step)
         n = 0
         batches = self.train_loader.epoch(self.epoch)
-        it = self._fetch(batches)
         try:
-            while True:
-                group = list(itertools.islice(it, k))
-                if not group:
-                    break
-                if len(group) == k > 1:
-                    self._dispatch(group, n, use_z)
-                else:  # k = 1, or the tail of fewer than k batches
-                    for i, batch in enumerate(group):
-                        self._single_step(batch, n + i, use_z)
-                if n == 0:
-                    t_first, n_first = time.perf_counter(), len(group)
-                n += len(group)
+            for batch in self._fetch(batches):
+                self._single_step(batch, n, use_z)
+                n += 1
+                if n == 1:
+                    t_first = time.perf_counter()
         finally:
             batches.close()
         if self.device.type == "cuda":
@@ -474,11 +426,10 @@ class Trainer:
         if n and self.rank == 0:
             t_end = time.perf_counter()
             ms = (t_end - t_epoch) * 1e3 / n
-            # a process's first step also autotunes cuDNN (the first
-            # dispatch, and captures its graph)
-            warm = (f", {(t_end - t_first) * 1e3 / (n - n_first):.1f} "
-                    f"after the first{f' {n_first}' if n_first > 1 else ''}"
-                    if n > n_first else "")
+            # a process's first step also autotunes cuDNN (and captures
+            # the step's graph)
+            warm = (f", {(t_end - t_first) * 1e3 / (n - 1):.1f} after the "
+                    "first" if n > 1 else "")
             print(f"epoch {self.epoch}: {n} steps, {ms:.1f} ms/step wall"
                   f"{warm} (data loading, logging and validation included)",
                   flush=True)

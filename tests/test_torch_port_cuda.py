@@ -911,15 +911,23 @@ def _multistep_setup(device, **kw):
     return cfg, models, batches, draws
 
 
+def _two_steps(step, models, opt, sched, cfg, batches, draws):
+    """``step`` (train_step or _eager_train_step) on each batch and its
+    draws in turn: each loss stacked (2,)."""
+    steps = [step(models, opt, sched, b, cfg, True, d)[0]
+             for b, d in zip(batches, draws)]
+    return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+
+
 def test_multistep_graph_matches_eager_steps(device):
-    """steps_per_dispatch on the card: one dispatch of 2 replays of the
-    captured step against 2 eager train_steps from one state (float32,
-    64x96, 8 bins, kernel_l1): step 1's losses within 1e-5 relative, step
-    2's total loss within 5e-3 and the parameters after both within rtol
-    5e-2 / atol 1e-3 (the JAX test's loose tier: row 3's atomics sum in
-    another order on every run); Adam is capturable; a second dispatch
-    counts its launches per replay (the wrappers' counters do not run in
-    a replay); the gradients left in .grad are the graph's."""
+    """Two train_step calls on the card (two replays of the captured step,
+    the first call capturing) against 2 eager steps from one state
+    (float32, 64x96, 8 bins, kernel_l1): step 1's losses within 1e-5
+    relative, step 2's total loss within 5e-3 and the parameters after
+    both within rtol 5e-2 / atol 1e-3 (the JAX test's loose tier: row 3's
+    atomics sum in another order on every run); Adam is capturable; two
+    more calls count their launches per replay (the wrappers' counters do
+    not run in a replay); the gradients left in .grad are the graph's."""
     from movedepth_tpu_torch.train import state as S
     cfg, cpu_models, batches, draws = _multistep_setup(device)
     runs = {}
@@ -928,15 +936,8 @@ def test_multistep_graph_matches_eager_steps(device):
                   for k, m in cpu_models.items()}
         opt, sched = S.create_optimizer(models, cfg)
         assert all(g["capturable"] for g in opt.param_groups)
-        if graphed:
-            multi = S.make_train_multistep(models, opt, sched, cfg)
-            losses = multi(batches, draws, True)
-        else:
-            steps = [S._eager_train_step(models, opt, sched, b, cfg, True,
-                                         d)[0]
-                     for b, d in zip(batches, draws)]
-            losses = {k: torch.stack([s[k] for s in steps])
-                      for k in steps[0]}
+        step = S.train_step if graphed else S._eager_train_step
+        losses = _two_steps(step, models, opt, sched, cfg, batches, draws)
         assert sched.last_epoch == 2
         runs[graphed] = (losses, models)
     (want, eager), (got, models) = runs[False], runs[True]
@@ -952,8 +953,9 @@ def test_multistep_graph_matches_eager_steps(device):
             torch.testing.assert_close(a, b, rtol=5e-2, atol=1e-3)
     counts = _launches(*SWEEP, *L1)
     graph = S._captured[opt]
-    multi(batches, draws, True)
+    _two_steps(S.train_step, models, opt, sched, cfg, batches, draws)
     torch.cuda.synchronize()
+    assert S._captured[opt] is graph
     assert _grown(counts, *SWEEP, *L1) == (2, 2, 4, 4)
     assert all(p.grad is g for p, g in zip(graph.params, graph.grads))
 
@@ -962,8 +964,8 @@ def test_multistep_graph_matches_eager_steps(device):
 def test_multistep_resumes_from_either_device(device, written, tmp_path):
     """A resume on the card from an ``adam.pth`` written by a step on the
     CPU (groups not capturable, the step counts on the host) or on the
-    card, then a dispatch of 2 graphed steps against 2 eager steps from
-    the same resume: Adam is capturable again with its step counts on the
+    card, then 2 train_step calls (a capture and 2 replays) against 2
+    eager steps from the same resume: Adam is capturable again with its step counts on the
     card, step 1's losses within 1e-5 relative, step 2's total loss within
     5e-3 (the tiers of test_multistep_graph_matches_eager_steps)."""
     from movedepth_tpu_torch.train import checkpoints as C
@@ -985,15 +987,9 @@ def test_multistep_resumes_from_either_device(device, written, tmp_path):
         assert all(g["capturable"] for g in ropt.param_groups)
         assert all(s["step"].device.type == "cuda"
                    for s in ropt.state.values())
-        if graphed:
-            runs[graphed] = S.make_train_multistep(resumed, ropt, rsched,
-                                                   cfg)(batches, draws, True)
-        else:
-            steps = [S._eager_train_step(resumed, ropt, rsched, b, cfg,
-                                         True, d)[0]
-                     for b, d in zip(batches, draws)]
-            runs[graphed] = {k: torch.stack([s[k] for s in steps])
-                             for k in steps[0]}
+        step = S.train_step if graphed else S._eager_train_step
+        runs[graphed] = _two_steps(step, resumed, ropt, rsched, cfg, batches,
+                                   draws)
         assert rsched.last_epoch == 3
     got, want = runs[True], runs[False]
     for k in want:
@@ -1194,17 +1190,6 @@ def test_capturable_adam_matches_float_adam(device):
         for a, b in zip(models.values(), ref.values()):
             for p, q in zip(a.parameters(), b.parameters()):
                 torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-7)
-
-
-def test_multistep_refuses_gloo_on_the_card(gloo_group):
-    """gloo collectives cannot be captured: steps_per_dispatch > 1 with a
-    gloo group on the card raises, rather than taking eager steps."""
-    from movedepth_tpu_torch.train import state as S
-    cfg, cpu_models, _, _ = _multistep_setup("cuda")
-    models = {k: m.cuda() for k, m in cpu_models.items()}
-    opt, sched = S.create_optimizer(models, cfg)
-    with pytest.raises(ValueError, match="nccl"):
-        S.make_train_multistep(models, opt, sched, cfg, gloo_group)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

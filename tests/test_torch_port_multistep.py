@@ -1,22 +1,22 @@
-"""The port's multi-step dispatch (``steps_per_dispatch``) on the CPU.
+"""The port's train steps against the JAX package's multi-step dispatch
+(``steps_per_dispatch``) on the CPU.
 
-``train.state.make_train_multistep`` against the JAX package's: on the
-CPU a dispatch is K eager ``train_step`` calls, so it is held to the JAX
-test's two tiers against the port's own sequential steps
-(tests/test_pipeline.py::test_multistep_matches_sequential: the K = 1
-dispatch's loss at rtol 1e-6 and its parameters at rtol 1e-4 / atol 3e-6;
-after two steps the loss at rtol 5e-3 and the parameters at rtol 5e-2 /
-atol 1e-3, the bounds of the chaotic amplification that test describes),
-and to the JAX package's scanned K = 2 steps from the same weights, batches
-and injected draws: step 1's losses under the train-step parity tolerances
-of tests/test_torch_port_train.py, step 2's total loss and the parameters
-after both under the JAX test's loose tier. Then what makes the step
-capturable on the card, checked where it runs here: the masked-augmentation box as two
-device tensors (the mask bit for bit the sliced one at every position),
-Adam with tensor rates written in place by the schedule (the updates and
-rates of a float-rate Adam under MultiStepLR across two milestones and
-after the resume's ``set_step``), and a trainer epoch with
-``steps_per_dispatch=2``. 64x96, 8 bins, float32.
+The port has no multi-step dispatch: every step is one
+``train.state.train_step``. Two sequential port steps are held to the JAX
+package's scanned K = 2 steps from the same weights, batches and injected
+draws: step 1's losses under the train-step parity tolerances of
+tests/test_torch_port_train.py, step 2's total loss and the parameters
+after both under the loose tier of
+tests/test_pipeline.py::test_multistep_matches_sequential (the loss at
+rtol 5e-3, the parameters at rtol 5e-2 / atol 1e-3, the bounds of the
+chaotic amplification that test describes). Then what makes the step
+capturable on the card, checked where it runs here: the
+masked-augmentation box as two device tensors (the mask bit for bit the
+sliced one at every position), Adam with tensor rates written in place by
+the schedule (the updates and rates of a float-rate Adam under
+MultiStepLR across two milestones and after the resume's ``set_step``),
+and a trainer epoch with ``steps_per_dispatch=2``, which takes one step a
+batch. 64x96, 8 bins, float32.
 """
 
 import copy
@@ -94,71 +94,31 @@ def jax_side(setup):
             jax.tree.map(np.asarray, new_state.params))
 
 
-def _port_run(states, batches, k, multistep):
-    """The port's first k steps, sequential or through one dispatch:
-    (losses {key: (k,)}, models)."""
-    models = build_models(MCFG, "cpu")
-    for name, m in models.items():
-        m.load_state_dict(states[name])
-    opt, sched = S.create_optimizer(models, MCFG)
-    batches = [P.as_batch(b, "cpu") for b in batches[:k]]
-    draws = [_draws(s) for s in KEYS[:k]]
-    if multistep:
-        losses = S.make_train_multistep(models, opt, sched, MCFG)(
-            batches, draws, True)
-    else:
-        steps = [S.train_step(models, opt, sched, b, MCFG, True, d)[0]
-                 for b, d in zip(batches, draws)]
-        losses = {key: torch.stack([s[key] for s in steps])
-                  for key in steps[0]}
-    assert sched.last_epoch == k
-    return losses, models
-
-
 @pytest.fixture(scope="module")
 def port_side(setup):
-    """{(k, multistep): _port_run(...)} on one torch thread."""
+    """The port's first two steps, sequential train_step calls on one torch
+    thread: (losses {key: (2,)}, models)."""
     states, batches = setup
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return {(k, multi): _port_run(states, batches, k, multi)
-                for k in (1, 2) for multi in (False, True)}
+        models = build_models(MCFG, "cpu")
+        for name, m in models.items():
+            m.load_state_dict(states[name])
+        opt, sched = S.create_optimizer(models, MCFG)
+        steps = [S.train_step(models, opt, sched, P.as_batch(b, "cpu"),
+                              MCFG, True, _draws(seed))[0]
+                 for b, seed in zip(batches, KEYS)]
     finally:
         torch.set_num_threads(threads)
-
-
-def _params(models):
-    return {f"{n}.{k}": p.detach().numpy() for n, m in models.items()
-            for k, p in m.named_parameters()}
-
-
-def test_multistep_matches_sequential_steps(port_side):
-    """The JAX test's two tiers, the dispatch against sequential steps."""
-    l1, m1 = port_side[(1, True)]
-    s1, ms1 = port_side[(1, False)]
-    assert l1["loss"].shape == (1,)
-    np.testing.assert_allclose(float(l1["loss"][0]), float(s1["loss"][0]),
-                               rtol=1e-6)
-    for key, want in _params(ms1).items():
-        np.testing.assert_allclose(_params(m1)[key], want, rtol=1e-4,
-                                   atol=3e-6, err_msg=key)
-    l2, m2 = port_side[(2, True)]
-    s2, ms2 = port_side[(2, False)]
-    assert sorted(l2) == sorted(s2) and l2["loss"].shape == (2,)
-    np.testing.assert_allclose(float(l2["loss"][0]), float(s2["loss"][0]),
-                               rtol=1e-6)
-    np.testing.assert_allclose(float(l2["loss"][1]), float(s2["loss"][1]),
-                               rtol=5e-3)
-    got = _params(m2)
-    for key, want in _params(ms2).items():
-        np.testing.assert_allclose(got[key], want, rtol=5e-2, atol=1e-3,
-                                   err_msg=key)
+    assert sched.last_epoch == 2
+    return {key: torch.stack([s[key] for s in steps]) for key in steps[0]}, \
+        models
 
 
 def test_multistep_matches_jax_multistep(jax_side, port_side):
     want_losses, want_params = jax_side
-    losses, models = port_side[(2, True)]
+    losses, models = port_side
     assert sorted(losses) == sorted(want_losses)
     for key, want in want_losses.items():
         assert want.shape == losses[key].shape == (2,)
@@ -312,11 +272,19 @@ def test_optimizer_resume_keeps_the_live_capturable(written, tmp_path):
 
 
 def test_trainer_epoch_with_steps_per_dispatch(kitti_tree,  # noqa: F811
-                                                capsys):
-    """Batch 1 over 5 train lines with K = 2: two dispatches and a tail
-    step, 5 steps in all; the log events (batches 0, 2, 4) recompute their
-    outputs; the step-0 snapshot holds the end of its group (2 steps)."""
+                                                capsys, monkeypatch):
+    """Batch 1 over 5 train lines with K = 2: one train_step a batch, 5 in
+    all, as at K = 1; the log events at batches 0, 2 and 4; the step-0
+    snapshot holds the state right after step 0."""
     root, splits = kitti_tree
+    calls = []
+    step = S.train_step
+
+    def spy(*args, **kwargs):
+        calls.append(args[3]["color"].shape[0])
+        return step(*args, **kwargs)
+
+    monkeypatch.setattr(S, "train_step", spy)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -327,29 +295,22 @@ def test_trainer_epoch_with_steps_per_dispatch(kitti_tree,  # noqa: F811
                                    save_intermediate_models=True),
                           split_dir=splits, device="cpu")
         assert trainer.steps_per_epoch == 5
-        calls = []
-        multi = trainer.train_multistep
-
-        def spy(batches, draws, use_z):
-            calls.append(len(batches))
-            return multi(batches, draws, use_z)
-
-        trainer.train_multistep = spy
         trainer.train()
     finally:
         torch.set_num_threads(threads)
-    assert calls == [2, 2] and trainer.step == 5
+    assert calls == [1] * 5 and trainer.step == 5
     models_dir = os.path.join(str(root / "log"), "t_multi", "models")
     assert sorted(os.listdir(models_dir)) == ["last", "opt.json",
                                               "weights_0_0"]
     snap = torch.load(os.path.join(models_dir, "weights_0_0", "adam.pth"),
                       weights_only=False)
-    assert snap["step"] == 2
+    assert snap["step"] == 1
     last = torch.load(os.path.join(models_dir, "last", "adam.pth"),
                       weights_only=False)
     assert last["step"] == 5
     shutil.rmtree(os.path.join(str(root / "log"), "t_multi"))  # ~650 MB
     out = capsys.readouterr().out
+    assert "steps_per_dispatch 2: one train step per batch (eager)" in out
     assert re.findall(r"batch +(\d+) \|", out) == ["0", "2", "4"]
     losses = [float(v) for v in re.findall(r"\| loss: (\S+) \|", out)]
     assert len(losses) == 3 and np.all(np.isfinite(losses))

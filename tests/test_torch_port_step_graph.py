@@ -48,18 +48,14 @@ def step_inputs():
 
 
 def test_cpu_steps_are_eager_and_counted(step_inputs):
-    """On the CPU no step is captured or replayed: each train_step call,
-    and each step of a multi-step dispatch, counts one eager step."""
+    """On the CPU no step is captured or replayed: a train_step call counts
+    one eager step."""
     models, batches, draws = step_inputs
     opt, sched = S.create_optimizer(models, CFG)
     S.train_step(models, opt, sched, batches[0], CFG, True, draws[0])
     assert S.step_counts() == {"train.step_graph_captures": 0,
                                "train.step_graph_replays": 0,
                                "train.step_eager": 1}
-    S.make_train_multistep(models, opt, sched, CFG)(batches, draws, False)
-    assert S.step_counts() == {"train.step_graph_captures": 0,
-                               "train.step_graph_replays": 0,
-                               "train.step_eager": 3}
     assert not S._captured.get(opt)
 
 

@@ -8,6 +8,7 @@ card. This file imports no JAX, so on the card it runs as
 
 import copy
 import time
+import types
 import warnings
 
 import numpy as np
@@ -149,6 +150,28 @@ def test_as_batch_on_the_cpu_copies_any_array(case):
     assert got.numpy().tobytes() == want.tobytes()
     assert got.shape == want.shape
     assert not np.shares_memory(got.numpy(), a)
+
+
+def test_trainer_put_sends_the_batch_through_as_batch():
+    """Trainer._put: every array of a loader batch but ``depth_gt`` through
+    ``pipeline.as_batch`` (its span under ``trainer.put``, its bytes
+    counted); ``depth_gt`` stays on the host."""
+    host = dict(make_batch(CFG, 2, 0),
+                depth_gt=np.ones((2, 375, 1242), np.float32))
+    trainer = types.SimpleNamespace(device=torch.device("cpu"))
+    trace.enable()
+    got = T.Trainer._put(trainer, host)
+    summ = trace.summary()
+    assert sorted(got) == sorted(k for k in host if k != "depth_gt")
+    for k, v in got.items():
+        assert torch.equal(v, torch.from_numpy(np.asarray(host[k]))), k
+    nbytes = sum(np.asarray(host[k]).nbytes for k in got)
+    assert summ["counters"]["h2d_bytes"] == nbytes
+    assert summ["counters"]["h2d_pageable_bytes"] == nbytes
+    assert _parents(summ) == {"trainer.put": [None],
+                              "pipeline.as_batch": ["trainer.put"],
+                              "as_batch.host_copy": ["pipeline.as_batch"]}
+    assert summ["spans"]["as_batch.host_copy"]["calls"] == len(got)
 
 
 def test_train_spans_parents_and_self_time(models):
@@ -336,13 +359,17 @@ def test_graph_replay_adds_captured_launches_once(device, models):
     capture."""
     cuda_models = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
     opt, sched = S.create_optimizer(cuda_models, CFG)
-    multi = S.make_train_multistep(cuda_models, opt, sched, CFG)
     batches = [P.synthetic_batch(CFG, 2, seed=i, device=device)
                for i in range(2)]
     gen = torch.Generator(device).manual_seed(0)
     draws = [P.sample_draws(CFG, 2, gen, device) for _ in batches]
+
+    def two_steps():
+        for b, d in zip(batches, draws):
+            S.train_step(cuda_models, opt, sched, b, CFG, True, d)
+
     trace.enable()
-    multi(batches, draws, True)  # warm-up, capture, 2 replays
+    two_steps()  # warm-up, capture, 2 replays
     torch.cuda.synchronize()
     fwd = trace.summary()["spans"]["train.forward"]
     assert fwd["calls"] == S.WARMUP_STEPS + 1  # the warm-up and the capture
@@ -353,8 +380,9 @@ def test_graph_replay_adds_captured_launches_once(device, models):
     assert per_replay["launch.sweep_warp"] == 1
     assert per_replay["launch.sweep_warp_bwd"] == 1
     trace.reset()
-    multi(batches, draws, True)  # 2 replays
+    two_steps()  # 2 replays
     torch.cuda.synchronize()
     for k, n in per_replay.items():
         assert trace.counter(k) == 2 * n, k
-    assert trace.summary()["spans"] == {}  # a replay runs no span
+    spans = trace.summary()["spans"]  # a replay runs no span in the step
+    assert set(spans) == {"train.step"} and spans["train.step"]["calls"] == 2
